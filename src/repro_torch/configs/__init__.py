@@ -1,0 +1,6 @@
+from repro_torch.configs.base import (  # noqa: F401
+    ModelConfig, ParallelConfig, smoke_reduce,
+)
+from repro_torch.configs.registry import (  # noqa: F401
+    ARCHS, get_config, get_smoke_config,
+)

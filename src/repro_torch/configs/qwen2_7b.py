@@ -1,0 +1,21 @@
+"""Qwen2 7B: dense GQA decoder with QKV bias.
+
+[arXiv:2407.10671; hf] 28L d_model=3584 28H (GQA kv=4) d_ff=18944
+vocab=152064.
+"""
+from repro_torch.configs.base import ModelConfig, smoke_reduce
+
+CONFIG = ModelConfig(
+    name="qwen2-7b",
+    family="dense",
+    n_layers=28,
+    d_model=3584,
+    n_heads=28,
+    n_kv_heads=4,
+    d_ff=18944,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1e6,
+)
+
+SMOKE_CONFIG = smoke_reduce(CONFIG)

@@ -1,0 +1,61 @@
+"""Dispatch: the CUDA kernel for a CUDA tensor, the plain version for a
+CPU tensor, an error for anything else.
+
+The choice follows only from the device of the tensor passed in. A CUDA
+tensor always goes to the hand-written kernel; if the kernel cannot be
+built or launched, the error propagates (no fallback to the plain
+version). The model calls these three functions and nothing else of
+``kernels``.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+from repro_torch.kernels.ref import (
+    decode_attention_ref, flash_attention_ref, paged_decode_attention_ref,
+)
+
+KERNELS = (flash_attention, decode_attention, paged_decode_attention)
+
+
+def _on_cuda(t, what: str) -> bool:
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"{what}: no kernel or plain version for device "
+                         f"{t.device}")
+    return False
+
+
+def attention(q, k, v, *, causal: bool = True):
+    """(BH, S, hd) prefill attention, KV heads already repeated."""
+    if _on_cuda(q, "attention"):
+        return flash_attention(q, k, v, causal=causal)
+    return flash_attention_ref(q, k, v, causal=causal)
+
+
+def decode(q, k_cache, v_cache, lengths, *, block_s: int):
+    """(B, H, hd) one-token attention over (B, S, KVH, hd) caches."""
+    if _on_cuda(q, "decode"):
+        return decode_attention(q, k_cache, v_cache, lengths, block_s=block_s)
+    return decode_attention_ref(q, k_cache, v_cache, lengths)
+
+
+def paged_decode(q, k_pages, v_pages, page_table, lengths):
+    """(B, H, hd) one-token attention through a (B, n) page table."""
+    if _on_cuda(q, "paged_decode"):
+        return paged_decode_attention(q, k_pages, v_pages, page_table,
+                                      lengths)
+    return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
+                                      lengths)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last reset, by kernel name."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0

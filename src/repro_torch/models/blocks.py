@@ -1,0 +1,94 @@
+"""Transformer block assembly, attention and dense MLP (``repro.models.blocks``).
+
+Attention runs through the kernels: prefill through the flash kernel on
+(B*H, S, hd) with KV heads repeated, decode through the contiguous or the
+paged decode kernel, which read the cache where it lies. The new token's
+K/V are written into the cache in place (``index_put_``), where the JAX
+package returns an updated copy that jit donates.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.attention import qkv_proj, repeat_kv
+from repro_torch.models.layers import mlp_apply, rmsnorm
+
+# Cache positions each split of the contiguous decode kernel sweeps. A
+# paged engine whose page_size equals it decodes bit-identically to the
+# contiguous engine.
+DECODE_BLOCK_S = 128
+
+
+def check_supported(cfg) -> None:
+    """Raise for layer kinds whose kernels belong to a later slice."""
+    for i in range(cfg.pattern_period):
+        if cfg.block_kind(i) != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: Mamba2 (SSM) layers arrive with the SSM/hybrid "
+                "slice of the port (ssd_scan kernel)")
+        if cfg.is_moe_layer(i):
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers arrive with the MoE slice of the "
+                "port (moe_gmm kernel)")
+
+
+def attn_block(p, cfg, x, positions, *, cache=None, lengths=None,
+               page_table=None):
+    """Returns (out (B, S, d), cache).
+
+    Prefill (``cache is None``) returns this layer's (k, v), each
+    (B, S, KVH, hd). Decode (S == 1) takes the layer's cache (k, v) —
+    (B, S_max, KVH, hd), or a page pool (n_pages, page_size, KVH, hd) with
+    ``page_table`` (B, pages_per_row) int32 — writes the new token at
+    ``lengths`` in place and attends over ``lengths + 1`` positions.
+    ``lengths`` is int32 on the cache's device and must stay below the
+    row's capacity: unlike JAX's scatter, an out-of-range write raises.
+    """
+    B, S, _ = x.shape
+    q, k, v = qkv_proj(p, cfg, x, positions)
+    if cache is None:
+        H, hd = cfg.n_heads, cfg.head_dim
+
+        def heads_major(t):               # (B, S, H, hd) -> (B*H, S, hd)
+            return t.transpose(1, 2).reshape(B * H, S, hd)
+
+        o = ops.attention(heads_major(q), heads_major(repeat_kv(k, H)),
+                          heads_major(repeat_kv(v, H)), causal=True)
+        o = o.reshape(B, H, S, hd).transpose(1, 2)
+        new_cache = (k, v)
+    else:
+        if S != 1:
+            raise ValueError(f"decode takes one token per row, got {S}")
+        k_cache, v_cache = cache
+        rows = torch.arange(B, device=x.device)
+        pos = lengths.long()
+        if page_table is not None:
+            ps = k_cache.shape[1]
+            page = page_table.long()[rows, pos // ps]
+            k_cache[page, pos % ps] = k[:, 0]
+            v_cache[page, pos % ps] = v[:, 0]
+            o = ops.paged_decode(q[:, 0], k_cache, v_cache, page_table,
+                                 lengths + 1)
+        else:
+            k_cache[rows, pos] = k[:, 0]
+            v_cache[rows, pos] = v[:, 0]
+            o = ops.decode(q[:, 0], k_cache, v_cache, lengths + 1,
+                           block_s=DECODE_BLOCK_S)
+        o = o[:, None]
+        new_cache = cache
+    out = o.reshape(B, S, cfg.q_dim) @ p["wo"]
+    return out, new_cache
+
+
+def block_apply(p, cfg, x, positions, *, cache=None, lengths=None,
+                page_table=None):
+    """One pre-norm attention + dense-MLP block. Returns (x, cache)."""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    out, new_cache = attn_block(p["attn"], cfg, h, positions, cache=cache,
+                                lengths=lengths, page_table=page_table)
+    x = x + out
+    if cfg.d_ff > 0:
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        x = x + mlp_apply(p["mlp"], h, cfg.mlp_act)
+    return x, new_cache

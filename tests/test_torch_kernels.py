@@ -1,0 +1,162 @@
+"""The port's plain kernel versions vs the JAX package's Pallas kernels
+(interpret mode, as tests/test_kernels.py runs them) and its jnp oracles.
+
+On the CPU, ``repro_torch.kernels.ops`` sends every call to the plain
+PyTorch version; these sweeps pin that version to the reference on the
+shapes the JAX package's own kernel tests use. The CUDA kernels are held
+against the same plain versions on the card (tests/test_torch_cuda.py and
+chip_smoke.py).
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.decode_attention import (  # noqa: E402
+    decode_attention as pallas_decode)
+from repro.kernels.flash_attention import (  # noqa: E402
+    flash_attention as pallas_flash)
+from repro.kernels.paged_decode_attention import (  # noqa: E402
+    paged_decode_attention as pallas_paged)
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    decode_attention_ref, paged_decode_attention_ref)
+
+# fp32: both sides sum in fp32 in another order (tests/test_kernels.py:24);
+# bf16: the outputs round to bf16, ~1e-2 per ulp at |x| ~ 2
+# (tests/test_kernels.py:25)
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+DT = {"float32": (jnp.float32, torch.float32),
+      "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _both(a, dtype):
+    """The same numpy values as a jax array and a CPU tensor of ``dtype``
+    (both round fp32 -> bf16 to nearest even, so the bits agree)."""
+    jdt, tdt = DT[dtype]
+    return jnp.asarray(a, jdt), torch.from_numpy(a).to(tdt)
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "BH,S,Sk,hd,bq,bk,causal",
+    [(2, 128, 128, 64, 32, 32, True),
+     (3, 96, 96, 32, 32, 64, True),
+     (2, 64, 192, 64, 64, 64, False),    # cross-attention shape
+     (1, 200, 200, 16, 64, 64, True),    # ragged (padding path)
+     (4, 32, 32, 128, 32, 32, True)])
+def test_flash_plain_matches_pallas(BH, S, Sk, hd, bq, bk, causal, dtype):
+    r = np.random.default_rng(0)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(r.standard_normal(s).astype(np.float32), dtype)
+        for s in ((BH, S, hd), (BH, Sk, hd), (BH, Sk, hd)))
+    out = ops.attention(tq, tk, tv, causal=causal)
+    assert out.dtype == tq.dtype and out.shape == (BH, S, hd)
+    pallas = pallas_flash(jq, jk, jv, causal=causal, block_q=bq, block_k=bk,
+                          interpret=True)
+    oracle = jref.flash_attention_ref(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(_f32(out), _f32(pallas), **TOL[dtype])
+    np.testing.assert_allclose(_f32(out), _f32(oracle), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,H,KVH,hd,S,bs",
+    [(2, 8, 2, 64, 256, 64),
+     (3, 4, 4, 32, 100, 32),     # MHA + ragged
+     (1, 16, 2, 16, 512, 128),
+     (2, 32, 8, 64, 64, 64)])
+def test_decode_plain_matches_pallas(B, H, KVH, hd, S, bs, dtype):
+    r = np.random.default_rng(1)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(r.standard_normal(s).astype(np.float32), dtype)
+        for s in ((B, H, hd), (B, S, KVH, hd), (B, S, KVH, hd)))
+    lens = r.integers(1, S + 1, (B,)).astype(np.int32)
+    out = ops.decode(tq, tk, tv, torch.from_numpy(lens), block_s=bs)
+    pallas = pallas_decode(jq, jk, jv, jnp.asarray(lens), block_s=bs,
+                           interpret=True)
+    oracle = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens))
+    np.testing.assert_allclose(_f32(out), _f32(pallas), **TOL[dtype])
+    np.testing.assert_allclose(_f32(out), _f32(oracle), **TOL[dtype])
+
+
+def _paged_views(cache: np.ndarray, page_size: int, shuffle_seed=None):
+    """Lay a contiguous (B, S, KVH, hd) cache out as a page pool + table,
+    page 0 a NaN-poisoned null page (tests/test_paged.py:_paged_views)."""
+    B, S, KVH, hd = cache.shape
+    n_pt = S // page_size
+    perm = np.arange(B * n_pt)
+    if shuffle_seed is not None:
+        np.random.default_rng(shuffle_seed).shuffle(perm)
+    pool = np.full((1 + B * n_pt, page_size, KVH, hd), np.nan, cache.dtype)
+    table = np.zeros((B, n_pt), np.int32)
+    for b in range(B):
+        for j in range(n_pt):
+            p = 1 + int(perm[b * n_pt + j])
+            pool[p] = cache[b, j * page_size:(j + 1) * page_size]
+            table[b, j] = p
+    return pool, table
+
+
+@pytest.mark.parametrize("B,H,KVH,hd,S,ps",
+                         [(4, 4, 2, 16, 64, 16),
+                          (3, 8, 8, 32, 96, 32),
+                          (2, 4, 1, 64, 64, 16)])
+def test_paged_plain_bitwise_matches_contiguous(B, H, KVH, hd, S, ps):
+    """Paged == contiguous bit for bit for any physical page placement,
+    and both agree with the Pallas paged kernel (tests/test_paged.py:161)."""
+    r = np.random.default_rng(7)
+    q = r.standard_normal((B, H, hd)).astype(np.float32)
+    k = r.standard_normal((B, S, KVH, hd)).astype(np.float32)
+    v = r.standard_normal((B, S, KVH, hd)).astype(np.float32)
+    lens = r.integers(1, S + 1, (B,)).astype(np.int32)
+    k_pool, table = _paged_views(k, ps, shuffle_seed=3)
+    v_pool, _ = _paged_views(v, ps, shuffle_seed=3)
+    t = torch.from_numpy
+    contiguous = ops.decode(t(q), t(k), t(v), t(lens), block_s=ps)
+    paged = ops.paged_decode(t(q), t(k_pool), t(v_pool), t(table), t(lens))
+    assert torch.equal(paged, contiguous)
+    pallas = pallas_paged(jnp.asarray(q), jnp.asarray(k_pool),
+                          jnp.asarray(v_pool), jnp.asarray(table),
+                          jnp.asarray(lens), interpret=True)
+    np.testing.assert_allclose(paged.numpy(), np.asarray(pallas),
+                               **TOL["float32"])
+
+
+def test_zero_length_rows_are_exact_zero():
+    """A ``length == 0`` row gives exact zeros in both plain versions and
+    in the Pallas kernels; live rows beside it are unperturbed
+    (tests/test_paged.py:189)."""
+    B, H, KVH, hd, S, ps = 4, 4, 2, 16, 64, 16
+    r = np.random.default_rng(11)
+    q = r.standard_normal((B, H, hd)).astype(np.float32)
+    k = r.standard_normal((B, S, KVH, hd)).astype(np.float32)
+    v = r.standard_normal((B, S, KVH, hd)).astype(np.float32)
+    lens = np.array([0, 17, 0, S], np.int32)
+    k_pool, table = _paged_views(k, ps)
+    v_pool, _ = _paged_views(v, ps)
+    t = torch.from_numpy
+    contiguous = decode_attention_ref(t(q), t(k), t(v), t(lens)).numpy()
+    paged = paged_decode_attention_ref(t(q), t(k_pool), t(v_pool), t(table),
+                                       t(lens)).numpy()
+    pallas = np.asarray(pallas_paged(
+        jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
+        jnp.asarray(table), jnp.asarray(lens), interpret=True))
+    for out in (contiguous, paged, pallas):
+        assert np.all(out[[0, 2]] == 0.0)
+        assert np.all(np.isfinite(out))
+    np.testing.assert_array_equal(paged, contiguous)
+    np.testing.assert_allclose(paged[[1, 3]], pallas[[1, 3]],
+                               **TOL["float32"])
