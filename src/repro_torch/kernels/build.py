@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("flash_attention", "decode_attention")
+SOURCES = ("flash_attention", "decode_attention", "moe_gmm", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -40,6 +40,15 @@ SIGNATURES = {
         # q, kp, vp, table, lengths, o, part, B, H, KVH, hd, ps, n_pt, dtype,
         # stream
         "paged_decode_attention_fwd": (_P,) * 7 + (_I,) * 7 + (_P,),
+    },
+    "moe_gmm": {
+        # x, w, out, E, C, d, f, dtype, stream
+        "moe_gmm_fwd": (_P,) * 3 + (_I,) * 5 + (_P,),
+    },
+    "ssd_scan": {
+        # x, dt, A, Bg, Cg, y, state, B, S, nh, hp, ng, ds, chunk, dtype,
+        # stream
+        "ssd_scan_fwd": (_P,) * 7 + (_I,) * 8 + (_P,),
     },
 }
 

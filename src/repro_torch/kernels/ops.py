@@ -4,19 +4,23 @@ CPU tensor, an error for anything else.
 The choice follows only from the device of the tensor passed in. A CUDA
 tensor always goes to the hand-written kernel; if the kernel cannot be
 built or launched, the error propagates (no fallback to the plain
-version). The model calls these three functions and nothing else of
+version). The model calls these five functions and nothing else of
 ``kernels``.
 """
 from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from repro_torch.kernels.ref import (
-    decode_attention_ref, flash_attention_ref, paged_decode_attention_ref,
+    decode_attention_ref, flash_attention_ref, moe_gmm_ref,
+    paged_decode_attention_ref, ssd_scan_ref,
 )
+from repro_torch.kernels.ssd_scan import ssd_scan
 
-KERNELS = (flash_attention, decode_attention, paged_decode_attention)
+KERNELS = (flash_attention, decode_attention, paged_decode_attention, moe_gmm,
+           ssd_scan)
 
 
 def _on_cuda(t, what: str) -> bool:
@@ -49,6 +53,20 @@ def paged_decode(q, k_pages, v_pages, page_table, lengths):
                                       lengths)
     return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
                                       lengths)
+
+
+def gmm(x, w):
+    """(E, C, d) @ (E, d, f) -> (E, C, f) grouped expert GEMM."""
+    if _on_cuda(x, "gmm"):
+        return moe_gmm(x, w)
+    return moe_gmm_ref(x, w)
+
+
+def ssd(x, dt, A, Bg, Cg, *, chunk: int):
+    """Mamba2 chunked SSD scan from a zero state: (y fp32, state fp32)."""
+    if _on_cuda(x, "ssd"):
+        return ssd_scan(x, dt, A, Bg, Cg, chunk=chunk)
+    return ssd_scan_ref(x, dt, A, Bg, Cg, chunk=chunk)
 
 
 def launch_counts() -> dict[str, int]:

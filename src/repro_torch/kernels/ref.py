@@ -1,11 +1,13 @@
-"""Plain PyTorch versions of the port's attention kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Each function computes what its hand-written Hopper kernel computes, with
-fp32 arithmetic inside and the result cast to the query's dtype, on any
-device. ``kernels/ops.py`` sends CPU tensors here; ``chip_smoke.py`` holds
-each CUDA kernel against these on the card. They materialize the full
-score matrix (and, for paged decode, a gathered copy of each row's pages):
-they are references, never the card's path.
+fp32 arithmetic inside, on any device: the attention versions and
+``moe_gmm_ref`` cast the result to the input's dtype, ``ssd_scan_ref``
+returns fp32 as the kernel does. ``kernels/ops.py`` sends CPU tensors
+here; ``chip_smoke.py`` holds each CUDA kernel against these on the card.
+They materialize whole intermediates (the full score matrix, a gathered
+copy of each row's pages, fp32 copies of the expert weights): they are
+references, never the card's path.
 """
 from __future__ import annotations
 
@@ -70,3 +72,54 @@ def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths):
     k_view = k_pages[idx].reshape(B, n_pt * ps, *k_pages.shape[2:])
     v_view = v_pages[idx].reshape(B, n_pt * ps, *v_pages.shape[2:])
     return decode_attention_ref(q, k_view, v_view, lengths)
+
+
+def moe_gmm_ref(x, w):
+    """Grouped expert GEMM. x: (E, C, d); w: (E, d, f) -> (E, C, f) in
+    x's dtype, from an fp32 product (``repro.kernels.ref.moe_gmm_ref``)."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def ssd_scan_ref(x, dt, A, Bg, Cg, *, chunk: int):
+    """Mamba2 SSD forward from a zero state, in the chunked dual form of
+    ``repro.models.ssm.ssd_chunked``.
+
+    x: (B, S, nh, hp); dt: (B, S, nh) f32; A: (nh,) f32; Bg/Cg: (B, S, ng,
+    ds), head h reading group h // (nh / ng). S must be a multiple of
+    ``chunk``. Returns (y (B, S, nh, hp) fp32, final state (B, nh, hp, ds)
+    fp32), like the Pallas kernel.
+    """
+    B, S, nh, hp = x.shape
+    ng, ds = Bg.shape[-2:]
+    if chunk < 1 or S % chunk or nh % ng:
+        raise ValueError(f"ssd_scan_ref: S={S} must be a multiple of chunk="
+                         f"{chunk} and ng={ng} must divide nh={nh}")
+    nc, f32 = S // chunk, torch.float32
+    Bh = Bg.to(f32).repeat_interleave(nh // ng, dim=2).reshape(
+        B, nc, chunk, nh, ds)
+    Ch = Cg.to(f32).repeat_interleave(nh // ng, dim=2).reshape(
+        B, nc, chunk, nh, ds)
+    xc = x.to(f32).reshape(B, nc, chunk, nh, hp)
+    dtc = dt.to(f32).reshape(B, nc, chunk, nh)
+    A = A.to(f32)
+    causal = (torch.arange(chunk, device=x.device)[:, None]
+              >= torch.arange(chunk, device=x.device)[None, :])
+    state = torch.zeros(B, nh, hp, ds, dtype=f32, device=x.device)
+    ys = []
+    for c in range(nc):
+        xb, dtb, Bb, Cb = xc[:, c], dtc[:, c], Bh[:, c], Ch[:, c]
+        cs = torch.cumsum(dtb * A, dim=1)                     # (B, Q, nh)
+        # exp only under the mask's where: above the diagonal cs_i - cs_j
+        # > 0 and may overflow, and is then discarded (as in JAX)
+        L = torch.where(causal[None, :, :, None],
+                        torch.exp(cs[:, :, None, :] - cs[:, None, :, :]), 0.0)
+        scores = torch.einsum("bihs,bjhs->bijh", Cb, Bb) * L
+        xdt = xb * dtb[..., None]
+        y = torch.einsum("bijh,bjhp->bihp", scores, xdt)
+        y = y + torch.einsum("bihs,bhps->bihp", Cb, state) * torch.exp(
+            cs)[..., None]
+        decay_out = torch.exp(cs[:, -1:, :] - cs)
+        state = state * torch.exp(cs[:, -1])[:, :, None, None] + torch.einsum(
+            "bjhs,bjhp->bhps", Bb * decay_out[..., None], xdt)
+        ys.append(y)
+    return torch.stack(ys, dim=1).reshape(B, S, nh, hp), state

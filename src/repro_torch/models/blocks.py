@@ -1,10 +1,13 @@
-"""Transformer block assembly, attention and dense MLP (``repro.models.blocks``).
+"""Block assembly: attention or Mamba2, then a dense MLP or an MoE layer
+(``repro.models.blocks``).
 
 Attention runs through the kernels: prefill through the flash kernel on
 (B*H, S, hd) with KV heads repeated, decode through the contiguous or the
 paged decode kernel, which read the cache where it lies. The new token's
 K/V are written into the cache in place (``index_put_``), where the JAX
-package returns an updated copy that jit donates.
+package returns an updated copy that jit donates. Mamba2 layers run
+``models.ssm`` (the ``ssd_scan`` kernel at prefill) and MoE layers
+``models.moe`` (the ``moe_gmm`` kernel).
 """
 from __future__ import annotations
 
@@ -13,24 +16,13 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.attention import qkv_proj, repeat_kv
 from repro_torch.models.layers import mlp_apply, rmsnorm
+from repro_torch.models.moe import moe_apply, route
+from repro_torch.models.ssm import mamba_apply
 
 # Cache positions each split of the contiguous decode kernel sweeps. A
 # paged engine whose page_size equals it decodes bit-identically to the
 # contiguous engine.
 DECODE_BLOCK_S = 128
-
-
-def check_supported(cfg) -> None:
-    """Raise for layer kinds whose kernels belong to a later slice."""
-    for i in range(cfg.pattern_period):
-        if cfg.block_kind(i) != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba2 (SSM) layers arrive with the SSM/hybrid "
-                "slice of the port (ssd_scan kernel)")
-        if cfg.is_moe_layer(i):
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers arrive with the MoE slice of the "
-                "port (moe_gmm kernel)")
 
 
 def attn_block(p, cfg, x, positions, *, cache=None, lengths=None,
@@ -81,14 +73,32 @@ def attn_block(p, cfg, x, positions, *, cache=None, lengths=None,
     return out, new_cache
 
 
-def block_apply(p, cfg, x, positions, *, cache=None, lengths=None,
+def block_apply(p, cfg, x, positions, i: int, *, cache=None, lengths=None,
                 page_table=None):
-    """One pre-norm attention + dense-MLP block. Returns (x, cache)."""
+    """One pre-norm block at pattern position ``i``: attention or Mamba2,
+    then the MoE layer (with the dense residual or shared MLP where the
+    config has one) or the dense MLP. Returns (x, cache).
+
+    ``cache`` is the layer's: (k, v) for attention, (conv tails, state)
+    for Mamba2; ``lengths`` and ``page_table`` concern attention only.
+    """
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    out, new_cache = attn_block(p["attn"], cfg, h, positions, cache=cache,
-                                lengths=lengths, page_table=page_table)
+    if cfg.block_kind(i) == "attn":
+        out, new_cache = attn_block(p["attn"], cfg, h, positions, cache=cache,
+                                    lengths=lengths, page_table=page_table)
+    else:
+        out, new_cache = mamba_apply(p["mamba"], cfg, h, cache=cache)
     x = x + out
-    if cfg.d_ff > 0:
+    if cfg.is_moe_layer(i):
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        ids, wts, _ = route(p["moe"], cfg, h)
+        y = moe_apply(p["moe"], cfg, h, ids, wts)
+        if cfg.dense_residual and cfg.d_ff > 0:
+            y = y + mlp_apply(p["dense_mlp"], h, cfg.mlp_act)
+        if cfg.n_shared_experts > 0:
+            y = y + mlp_apply(p["shared_mlp"], h, cfg.mlp_act)
+        x = x + y
+    elif cfg.d_ff > 0:
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
         x = x + mlp_apply(p["mlp"], h, cfg.mlp_act)
     return x, new_cache

@@ -1,0 +1,109 @@
+"""Mamba2 (state-space duality) blocks (``repro.models.ssm``).
+
+Prefill runs the chunked SSD scan through ``kernels.ops.ssd`` (the
+``ssd_scan`` kernel on the card), from a zero state. Decode runs the
+one-token recurrence ``ssd_decode_step`` as plain tensor ops: the JAX
+package has no kernel for it either. The projections and the depthwise
+causal conv stay plain ops, as JAX leaves them to XLA.
+
+Caches per layer: ``({"x", "B", "C"} conv tails (B, k-1, ch) in the
+model's dtype, SSM state (B, nh, hp, ds) fp32)``. Decode writes the new
+conv tails and state into the cache tensors in place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import rmsnorm
+
+
+def causal_conv(x, w, prev=None):
+    """Depthwise causal conv + SiLU. x: (B, S, ch); w: (k, ch); prev:
+    (B, k-1, ch) or None (zeros). Returns (out (B, S, ch), new tail
+    (B, k-1, ch)). The conv's sum is rounded to x's dtype before the fp32
+    SiLU, as the JAX conv returns it."""
+    k = w.shape[0]
+    if prev is None:
+        prev = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    xp = torch.cat([prev, x], dim=1)
+    S = x.shape[1]
+    wf = w.float()
+    acc = xp[:, 0:S].float() * wf[0]
+    for i in range(1, k):
+        acc = acc + xp[:, i:i + S].float() * wf[i]
+    out = F.silu(acc.to(x.dtype).float()).to(x.dtype)
+    return out, xp[:, S:]
+
+
+def _expand_groups(t, nh: int):
+    """(B, ..., ng, ds) -> (B, ..., nh, ds) by repeating groups."""
+    ng = t.shape[-2]
+    return t if ng == nh else t.repeat_interleave(nh // ng, dim=-2)
+
+
+def ssd_decode_step(xh, dt, A, Bg, Cg, state):
+    """One token. xh: (B, nh, hp); dt: (B, nh); Bg/Cg: (B, ng, ds);
+    state: (B, nh, hp, ds) fp32 -> (y (B, nh, hp) in xh's dtype, new
+    state fp32)."""
+    nh = xh.shape[1]
+    Bh = _expand_groups(Bg, nh).float()
+    Ch = _expand_groups(Cg, nh).float()
+    dA = torch.exp(dt * A)
+    xdt = xh.float() * dt[..., None]
+    new_state = state * dA[..., None, None] + torch.einsum(
+        "bhs,bhp->bhps", Bh, xdt)
+    y = torch.einsum("bhs,bhps->bhp", Ch, new_state)
+    return y.to(xh.dtype), new_state
+
+
+def mamba_apply(p, cfg, x, *, cache=None):
+    """x: (B, S, d) -> (out (B, S, d), cache).
+
+    Prefill (``cache is None``) scans the whole prompt and returns the
+    layer's new cache; S must be below ``cfg.ssm_chunk`` or a multiple of
+    it (``ssd_chunked``'s rule), else ``ValueError``. Decode (S == 1)
+    takes the layer's cache, advances it one token in place and returns it.
+    """
+    B, S, _ = x.shape
+    nh, hp, ds, ng = (cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.d_state,
+                      cfg.ssm_groups)
+    z = x @ p["w_z"]
+    xs = x @ p["w_x"]
+    Bm = x @ p["w_B"]
+    Cm = x @ p["w_C"]
+    dt = x.float() @ p["w_dt"].float()
+    conv = cache[0] if cache is not None else {}
+    xs, cx = causal_conv(xs, p["conv_x"], conv.get("x"))
+    Bm, cb = causal_conv(Bm, p["conv_B"], conv.get("B"))
+    Cm, cc = causal_conv(Cm, p["conv_C"], conv.get("C"))
+    dt = F.softplus(dt + p["dt_bias"])                    # (B, S, nh)
+    A = -torch.exp(p["a_log"])
+    xh = xs.reshape(B, S, nh, hp)
+    Bg = Bm.reshape(B, S, ng, ds)
+    Cg = Cm.reshape(B, S, ng, ds)
+    if cache is None:
+        chunk = min(cfg.ssm_chunk, S)
+        if S % chunk:
+            raise ValueError(
+                f"{cfg.name}: a prompt of {S} tokens is neither shorter "
+                f"than the SSD chunk ({cfg.ssm_chunk}) nor a multiple of it")
+        y, state = ops.ssd(xh, dt, A, Bg, Cg, chunk=chunk)
+        y = y.to(xh.dtype)
+        new_cache = ({"x": cx, "B": cb, "C": cc}, state)
+    else:
+        if S != 1:
+            raise ValueError(f"decode takes one token per row, got {S}")
+        y, state = ssd_decode_step(xh[:, 0], dt[:, 0], A, Bg[:, 0],
+                                   Cg[:, 0], cache[1])
+        y = y[:, None]
+        for key, tail in (("x", cx), ("B", cb), ("C", cc)):
+            conv[key].copy_(tail)
+        cache[1].copy_(state)
+        new_cache = cache
+    y = y + (xh.float() * p["d_skip"][:, None]).to(y.dtype)
+    y = y.reshape(B, S, cfg.d_inner)
+    y = rmsnorm(p["norm"], y, cfg.norm_eps)
+    y = y * F.silu(z.float()).to(y.dtype)
+    return y @ p["w_out"], new_cache

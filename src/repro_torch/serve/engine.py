@@ -12,7 +12,10 @@ when its budget runs out, never on a token value. Greedy sampling.
 With ``page_size`` the attention KV lives in one shared page pool: pages
 are allocated on admit and freed on finish, page 0 is the null page that
 every inactive row's table points at, and decode reads K/V through the
-table inside the paged kernel.
+table inside the paged kernel. Mamba2 caches (conv tails and SSM state)
+have no sequence axis and stay slot-indexed in both modes; an arch with
+no attention layer still allocates and frees its pages, as the JAX
+engine does.
 
 Caches are tensors updated in place (prefill splices are ``copy_`` into
 slots or pages; decode writes the new token with ``index_put_``) where the
@@ -103,21 +106,6 @@ class Engine:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # ---------------------------------------------------------- prefill
-    def _splice_caches(self, slot: int, row: int, pre_caches) -> None:
-        """Copy prefill row ``row`` (seq P) of every layer into ``slot``."""
-        ps = self.page_size
-        for key, pair in self.caches.items():
-            for dst, src in zip(pair, pre_caches[key]):
-                src = src[:, row]                     # (R, P, KVH, hd)
-                P = src.shape[1]
-                if self.pager is None:
-                    dst[:, slot, :P].copy_(src)
-                    continue
-                table = self._page_table[slot]
-                for j0 in range(0, P, ps):
-                    cs = min(ps, P - j0)
-                    dst[:, int(table[j0 // ps]), :cs].copy_(src[:, j0:j0 + cs])
-
     def admit(self, req: Request) -> bool:
         return bool(self.admit_many([req]))
 
@@ -182,7 +170,10 @@ class Engine:
         toks = torch.argmax(logits, dim=-1)[:k].cpu().numpy().astype(np.int32)
         slots = np.array([s for s, _ in members])
         for i, (slot, req) in enumerate(members):
-            self._splice_caches(slot, i, pre_caches)
+            self.lm.splice(self.caches, pre_caches, slot, i,
+                           pages=None if self.pager is None
+                           else self._page_table[slot],
+                           page_size=self.page_size)
             self.active[slot] = req
             req.out_tokens.append(toks[i])
         self.lengths[slots] = plen + n_img

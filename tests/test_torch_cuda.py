@@ -15,7 +15,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    decode_attention_ref, flash_attention_ref, paged_decode_attention_ref)
+    decode_attention_ref, flash_attention_ref, moe_gmm_ref,
+    paged_decode_attention_ref, ssd_scan_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -81,3 +82,52 @@ def test_decode_kernels_match_plain_and_each_other(card, B, H, KVH, hd, S,
     assert torch.equal(paged, out)
     _close(paged, paged_decode_attention_ref(q, *pools, table, lengths),
            dtype)
+
+
+# tests/test_kernels.py:98-99 (gmm) and :81-82 (ssd): fp32 sums reorder;
+# bf16 outputs round (gmm), bf16 inputs round before fp32 math (ssd)
+GMM_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (8e-2, 4e-1)}
+SSD_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (8e-2, 8e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,d,f", [(4, 32, 64, 128), (3, 5, 37, 53),
+                                     (2, 70, 33, 31), (8, 1, 512, 384),
+                                     (8, 2, 64, 64), (8, 3, 64, 64),
+                                     (4, 10, 96, 160), (4, 15, 96, 160)])
+def test_gmm_kernel_matches_plain(card, E, C, d, f, dtype):
+    """Ragged C, d and f, C = 1 (a decode step), C over one tile, and a C
+    for each C-tile instance (1, 2, 4, 8, 16, 32 rows)."""
+    x = torch.randn(E, C, d, generator=card, device="cuda").to(dtype)
+    w = (0.1 * torch.randn(E, d, f, generator=card, device="cuda")).to(dtype)
+    before = ops.launch_counts()["moe_gmm"]
+    out = ops.gmm(x, w)
+    assert ops.launch_counts()["moe_gmm"] == before + 1
+    rtol, atol = GMM_TOL[dtype]
+    torch.testing.assert_close(out.float(), moe_gmm_ref(x, w).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,hp,ng,ds,chunk",
+                         [(2, 64, 4, 16, 1, 16, 16),
+                          (1, 96, 4, 16, 2, 128, 48),
+                          (2, 48, 8, 64, 1, 16, 12),
+                          (2, 512, 8, 64, 2, 128, 256),
+                          (3, 128, 8, 64, 1, 128, 128)])
+def test_ssd_kernel_matches_plain(card, B, S, nh, hp, ng, ds, chunk, dtype):
+    """y and the final state, over several chunks and ragged query
+    tiles, with grouped B/C."""
+    x = (0.5 * torch.randn(B, S, nh, hp, generator=card,
+                           device="cuda")).to(dtype)
+    dt = 0.01 + 0.29 * torch.rand(B, S, nh, generator=card, device="cuda")
+    A = -(0.5 + 1.5 * torch.rand(nh, generator=card, device="cuda"))
+    Bg, Cg = ((0.3 * torch.randn(B, S, ng, ds, generator=card,
+                                 device="cuda")).to(dtype) for _ in range(2))
+    before = ops.launch_counts()["ssd_scan"]
+    y, state = ops.ssd(x, dt, A, Bg, Cg, chunk=chunk)
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    y_ref, state_ref = ssd_scan_ref(x, dt, A, Bg, Cg, chunk=chunk)
+    rtol, atol = SSD_TOL[dtype]
+    torch.testing.assert_close(y, y_ref, rtol=rtol, atol=atol)
+    torch.testing.assert_close(state, state_ref, rtol=rtol, atol=atol)

@@ -30,8 +30,10 @@ from repro_torch.bridge import init_params, params_from_jax  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.moe_gmm import moe_gmm  # noqa: E402
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention)
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
 
@@ -117,28 +119,38 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         paged_decode_attention(q, kv, kv, torch.ones(2, 1, dtype=torch.int32),
                                lengths)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gmm(torch.zeros(2, 3, 16), torch.zeros(2, 16, 8))
+    x, bc = torch.zeros(1, 16, 2, 16), torch.zeros(1, 16, 1, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan(x, torch.zeros(1, 16, 2), torch.zeros(2), bc, bc, chunk=16)
     with pytest.raises(ValueError, match="device meta"):
         ops.attention(q.to("meta"), q.to("meta"), q.to("meta"))
 
 
 def test_cpu_serving_counts_no_launches():
-    """A full CPU serve (prefill + contiguous and paged decode) goes to
-    the plain versions only: every launch counter stays 0."""
-    cfg = tconfigs.get_smoke_config("musicgen-large")
-    lm = LM(cfg, init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
-            device="cpu")
+    """A full CPU serve (prefill + contiguous and paged decode) of an
+    attention, an MoE and an SSM arch goes to the plain versions only:
+    every launch counter stays 0."""
     ops.reset_launch_counts()
     r = np.random.default_rng(0)
-    for page_size in (None, 8):
-        eng = Engine(lm, max_batch=2, max_len=32, page_size=page_size,
-                     device="cpu")
-        done = eng.run([Request(rid=i, tokens=r.integers(
-            1, 256, (5, 4)).astype(np.int32), max_new_tokens=3)
-            for i in range(3)])
-        assert len(done) == 3 and eng.steps > 0 and eng.prefills > 0
+    for arch in ("musicgen-large", "arctic-480b", "mamba2-1.3b"):
+        cfg = tconfigs.get_smoke_config(arch)
+        lm = LM(cfg, init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu"), device="cpu")
+        shape = (5, cfg.n_codebooks) if cfg.n_codebooks > 1 else (5,)
+        for page_size in (None, 8):
+            eng = Engine(lm, max_batch=2, max_len=32, page_size=page_size,
+                         device="cpu")
+            done = eng.run([Request(rid=i, tokens=r.integers(
+                1, 256, shape).astype(np.int32), max_new_tokens=3)
+                for i in range(3)])
+            assert len(done) == 3 and eng.steps > 0 and eng.prefills > 0
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "decode_attention": 0,
-                                   "paged_decode_attention": 0}
+                                   "paged_decode_attention": 0,
+                                   "moe_gmm": 0,
+                                   "ssd_scan": 0}
 
 
 # ---------------------------------------------------------------- configs

@@ -1,5 +1,6 @@
 """The port's plain kernel versions vs the JAX package's Pallas kernels
-(interpret mode, as tests/test_kernels.py runs them) and its jnp oracles.
+(interpret mode, as tests/test_kernels.py runs them) and its jnp oracles:
+the three attention kernels, ``moe_gmm`` and ``ssd_scan``.
 
 On the CPU, ``repro_torch.kernels.ops`` sends every call to the plain
 PyTorch version; these sweeps pin that version to the reference on the
@@ -21,8 +22,10 @@ from repro.kernels.decode_attention import (  # noqa: E402
     decode_attention as pallas_decode)
 from repro.kernels.flash_attention import (  # noqa: E402
     flash_attention as pallas_flash)
+from repro.kernels.moe_gmm import moe_gmm as pallas_gmm  # noqa: E402
 from repro.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention as pallas_paged)
+from repro.kernels.ssd_scan import ssd_scan as pallas_ssd  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     decode_attention_ref, paged_decode_attention_ref)
@@ -160,3 +163,73 @@ def test_zero_length_rows_are_exact_zero():
     np.testing.assert_array_equal(paged, contiguous)
     np.testing.assert_allclose(paged[[1, 3]], pallas[[1, 3]],
                                **TOL["float32"])
+
+
+# tests/test_kernels.py:81-82: the SSD sums reorder in fp32 (2e-4); in
+# bf16 the inputs round before the fp32 arithmetic (8e-2)
+SSD_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
+           "bfloat16": dict(rtol=8e-2, atol=8e-2)}
+# tests/test_kernels.py:98-99: fp32 sums reorder (1e-4); bf16 outputs
+# round to bf16 at |out| up to ~10 (atol 4e-1)
+GMM_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+           "bfloat16": dict(rtol=8e-2, atol=4e-1)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,S,nh,hp,ng,ds,chunk",
+    [(2, 64, 4, 16, 1, 32, 16),
+     (1, 128, 8, 32, 2, 64, 32),
+     (2, 96, 2, 8, 2, 16, 48),
+     (1, 64, 4, 64, 4, 128, 64)])
+def test_ssd_plain_matches_pallas(B, S, nh, hp, ng, ds, chunk, dtype):
+    """The chunked plain version against the Pallas kernel and the JAX
+    package's token-by-token oracle: y and the final state."""
+    r = np.random.default_rng(12)
+    jx, tx = _both((r.standard_normal((B, S, nh, hp)) * 0.5).astype(
+        np.float32), dtype)
+    dt = r.uniform(0.01, 0.3, (B, S, nh)).astype(np.float32)
+    A = -r.uniform(0.5, 2.0, (nh,)).astype(np.float32)
+    (jB, tB), (jC, tC) = (
+        _both((r.standard_normal((B, S, ng, ds)) * 0.3).astype(np.float32),
+              dtype) for _ in range(2))
+    y, state = ops.ssd(tx, torch.from_numpy(dt), torch.from_numpy(A), tB, tC,
+                       chunk=chunk)
+    assert y.dtype == state.dtype == torch.float32
+    assert y.shape == (B, S, nh, hp) and state.shape == (B, nh, hp, ds)
+    pallas = pallas_ssd(jx, jnp.asarray(dt), jnp.asarray(A), jB, jC,
+                        chunk=chunk, interpret=True)
+    oracle = jref.ssd_scan_ref(jx, jnp.asarray(dt), jnp.asarray(A), jB, jC,
+                               chunk=chunk)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want[0]),
+                                   **SSD_TOL[dtype])
+        np.testing.assert_allclose(state.numpy(), np.asarray(want[1]),
+                                   **SSD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "E,C,d,f,bc,bf,bd",
+    [(4, 32, 64, 128, 16, 64, 32),
+     (2, 16, 32, 32, 16, 32, 32),
+     (8, 64, 128, 64, 32, 32, 64),
+     (1, 128, 256, 128, 128, 128, 128)])
+def test_gmm_plain_matches_pallas(E, C, d, f, bc, bf, bd, dtype):
+    r = np.random.default_rng(13)
+    jx, tx = _both(r.standard_normal((E, C, d)).astype(np.float32), dtype)
+    jw, tw = _both((r.standard_normal((E, d, f)) * 0.1).astype(np.float32),
+                   dtype)
+    out = ops.gmm(tx, tw)
+    assert out.dtype == tx.dtype and out.shape == (E, C, f)
+    pallas = pallas_gmm(jx, jw, block_c=bc, block_f=bf, block_d=bd,
+                        interpret=True)
+    for want in (pallas, jref.moe_gmm_ref(jx, jw)):
+        np.testing.assert_allclose(_f32(out), _f32(want), **GMM_TOL[dtype])
+
+
+def test_ssd_plain_rejects_a_broken_chunk():
+    x = torch.zeros(1, 20, 2, 4)
+    bc = torch.zeros(1, 20, 1, 4)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ops.ssd(x, torch.zeros(1, 20, 2), torch.zeros(2), bc, bc, chunk=16)
