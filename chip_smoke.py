@@ -11,9 +11,13 @@ without its final line:
    bf16 and fp32: attention at musicgen-large and qwen2-7b widths (ragged
    lengths, zero-length rows, shuffled pages, paged == contiguous bit for
    bit), moe_gmm at the C of every arctic-480b and jamba-smoke prefill
-   group and decode step (every C-tile instance), ssd_scan at every
-   mamba2-1.3b and jamba-smoke prefill group shape, grouped, and at each
-   (hp, ds) instance.
+   group and decode step (every instance: C tile, 16-byte or element-wise
+   loads, split over d or not), ssd_scan at every mamba2-1.3b and
+   jamba-smoke prefill group shape, grouped, and at each (hp, ds)
+   instance. After arctic's serve run, moe_gmm with the filled counts of
+   a decode step and of the largest prefill group, from ``route`` +
+   ``dispatch`` on the path's weights (rows past a count must be exact
+   zero).
 4. serve: four paths, one model resident at a time (weights from a
    seeded ``torch.Generator``): musicgen-large at full width and depth,
    mamba2-1.3b at full width and depth, arctic-480b at full width cut to
@@ -23,14 +27,22 @@ without its final line:
    contiguous and then paged; tokens and finish order must agree, every
    page must come back, and the launch counters, set to 0 just before
    each run and read just after, must show that every prefill and decode
-   step went through the path's kernels. A 2-layer cut of musicgen and of
-   mamba2 at full width in fp32 is held against the CPU's plain path.
+   step went through the path's kernels; on the MoE paths, ``plan`` at
+   every C and weight of the path must pick the bf16 tensor-core design
+   with 16-byte loads. A 2-layer cut of musicgen
+   and of mamba2 at full width in fp32 is held against the CPU's plain
+   path.
 5. times: per path, prefill ms per group, decode ms per step, tokens/s,
    peak device memory and the device-busy share of a decode step under
    torch.profiler; then CUDA-event times of each kernel, its plain
    version and, where one PyTorch call computes the same function, that
    call, at the shapes of phase 4, beside the least time the card could
-   take.
+   take: flash at musicgen's and arctic's heads (SDPA pinned to its flash
+   backend), moe_gmm at C 1 and 30 with every row filled (beside
+   torch.bmm) and at a real decode step's counts (bound on the filled
+   experts' weights); and moe_gmm at every C of arctic's path, with the
+   counts of the call that gives it, at several splits over d beside the
+   one ``plan`` picks (the measurements its split rule rests on).
 
 The last three lines are the ``nvidia-smi`` name and power limit, a JSON
 object with one entry per kernel, and ``{"ok": true, "device": ...}``.
@@ -56,6 +68,7 @@ TOL = {"float32": 2e-5,       # tests/test_kernels.py:24: fp32 sums reorder
 SSD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (8e-2, 8e-2)}
 GMM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-2, 4e-1)}
 REF_TOL = 1e-3                # fp32 logits, card vs CPU (cuBLAS sum order)
+SPIN_CYCLES = 1_000_000       # ~0.5 ms of device spin ahead of a timed call
 ARCH = "musicgen-large"
 # (arch, layers kept or None for all, smoke config, why)
 PATHS = (
@@ -111,14 +124,21 @@ def paged_layout(cache, ps, gen):
     return pool, table.to(cache.device)
 
 
-def time_ms(fn, flush, iters=20, warmup=3):
-    """Mean ms of ``fn`` by CUDA events, with L2 flushed before each call
-    (outside the events): each layer's real call finds its inputs cold."""
+def time_ms(fn, flush, iters=20, warmup=3, spin=True):
+    """Mean device ms of ``fn`` by CUDA events, with L2 flushed before each
+    call (outside the events): each layer's real call finds its inputs
+    cold. A spin kernel between the flush and the first event keeps the
+    host ahead of the card, so the events bracket the call's device time
+    and not the host time of its Python wrapper (without it, short calls
+    read up to three times their device time). ``spin=False`` times the
+    earlier way, event to event with the host in between."""
     for _ in range(warmup):
         fn()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -237,11 +257,6 @@ def phase_kernels():
     check_ssd(gen)
 
 
-def gmm_tile(C):
-    """The C tile that moe_gmm.cu's dispatch_c instantiates for C."""
-    return next((bc for bc in (1, 2, 4, 8, 16) if C <= bc), 32)
-
-
 def path_capacities(cfg):
     """moe_gmm's C on phase 4's path: each prefill group (1 to 3 prompts of
     one length: a window of 8 cycles through 3 lengths) and a decode step
@@ -252,11 +267,29 @@ def path_capacities(cfg):
     return sorted({capacity(t, cfg) for t in tokens | {MAX_BATCH}})
 
 
+def gmm_instance(x, w):
+    """(C tile, 16-byte loads, split over d) of moe_gmm(x, w)."""
+    from repro_torch.kernels.moe_gmm import plan
+    p = plan(x, w)
+    return p.c_tile, p.vec, p.splits > 1
+
+
+# every instance plan() picks, by dtype: fp32 C tiles 1-32 on CUDA cores;
+# bf16 N tiles 8/16/32 on mma.sync with 16-byte loads, split over d where
+# C <= 10 (tiles 8 and 16), and element-wise loads for ragged d or f
+GMM_INSTANCES = {
+    "float32": {(bc, False, False) for bc in (1, 2, 4, 8, 16, 32)},
+    "bfloat16": ({(bn, True, False) for bn in (8, 16, 32)}
+                 | {(8, True, True), (16, True, True), (8, False, False)}),
+}
+
+
 def check_gmm(gen):
     """moe_gmm at the C of every prefill group and decode step of arctic
     (128 experts, d 7168 <-> f 4864) and of jamba smoke, at a ragged shape,
-    and at C = 2: every C-tile instance of the kernel is held against the
-    plain version."""
+    and at C 2 and 12: every instance of the kernel is held against
+    the plain version, and every bf16 call of the two paths' shapes runs
+    the tensor-core design with 16-byte loads."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.ref import moe_gmm_ref
@@ -264,31 +297,135 @@ def check_gmm(gen):
     jamba = get_smoke_config("jamba-1.5-large-398b")
     a_cs = path_capacities(arctic)
     j_cs = path_capacities(jamba)
-    cases = [("arctic d->f", 128, 7168, 4864, a_cs + [2]),   # (E, d, f, Cs)
-             ("arctic f->d", 128, 4864, 7168, a_cs),
+    cases = [("arctic d->f", 128, 7168, 4864, a_cs + [2], True),
+             ("arctic f->d", 128, 4864, 7168, a_cs, True),
              ("jamba smoke", jamba.n_experts, jamba.d_model,
-              jamba.d_ff_expert, j_cs),
-             ("ragged", 3, 37, 53, [5])]
+              jamba.d_ff_expert, j_cs, True),
+             ("C 12, one d range", 4, 512, 256, [12], False),
+             ("ragged", 3, 37, 53, [5], False)]   # (E, d, f, Cs, a path's)
     for dtype in (torch.bfloat16, torch.float32):
-        rtol, atol = GMM_TOL[str(dtype).split(".")[1]]
-        tiles = set()
-        for label, E, d, f, cs in cases:
+        name = str(dtype).split(".")[1]
+        rtol, atol = GMM_TOL[name]
+        seen = set()
+        for label, E, d, f, cs, on_path in cases:
             w = rand((E, d, f), torch.float32, gen).mul_(d ** -0.5).to(dtype)
-            errs = []
+            errs, inst = [], set()
             for C in cs:
                 x = rand((E, C, d), dtype, gen)
                 errs.append(max_err(moe_gmm(x, w), moe_gmm_ref(x, w), rtol,
                                     atol))
-                tiles.add(gmm_tile(C))
+                inst.add(gmm_instance(x, w))
                 del x
+            if on_path and dtype == torch.bfloat16:
+                check(all(i[1] for i in inst),
+                      f"moe_gmm {label}: a path shape left the 16-byte "
+                      f"loads: {sorted(inst)}")
+            seen |= inst
             phase(3, "kernels", f"moe_gmm {label} (E {E}, d {d}, f {f}) "
-                  f"{dtype}: C {cs} (C tiles "
-                  f"{sorted({gmm_tile(C) for C in cs})}): max abs err "
+                  f"{dtype}: C {cs}; instances (C tile, 16-byte "
+                  f"loads, split over d) {sorted(inst)}: max abs err "
                   f"{max(errs):.3e} (rtol {rtol}, atol {atol})")
             del w
             torch.cuda.empty_cache()
-        check(tiles == {1, 2, 4, 8, 16, 32},
-              f"moe_gmm C tiles checked {sorted(tiles)}, not all six")
+        check(seen == GMM_INSTANCES[name],
+              f"moe_gmm {dtype} instances checked {sorted(seen)}, want "
+              f"{sorted(GMM_INSTANCES[name])}")
+
+
+def moe_counts(lm):
+    """{T: (E,) int32 filled counts} of layer 0's MoE dispatch (attention
+    + MoE, as in arctic) for each prefill group of phase 4 (T its rows)
+    and a decode step of the whole batch (T = MAX_BATCH): ``route`` +
+    ``dispatch`` on the path's own weights, fed the layer's own input
+    (embedding, attention, norms) for phase 4's prompts. A decode step's
+    rows are each request's last prompt token."""
+    from repro_torch.models.blocks import attn_block
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.lm import tree_map
+    from repro_torch.models.moe import dispatch, route
+    from repro_torch.serve.engine import Request
+    cfg = lm.cfg
+    check(cfg.block_kind(0) == "attn" and cfg.is_moe_layer(0),
+          f"{cfg.name}: layer 0 is not attention + MoE")
+    p = tree_map(lambda t: t[0], lm.params["blocks"]["pos0"])
+    reqs = make_requests(cfg, Request)
+    calls = {MAX_BATCH: torch.stack([torch.from_numpy(r.tokens[-1:])
+                                     for r in reqs[:MAX_BATCH]])}
+    for n in PLENS:
+        prompts = [torch.from_numpy(r.tokens) for r in reqs
+                   if len(r.tokens) == n]
+        for k in range(1, -(-MAX_BATCH // len(PLENS)) + 1):
+            calls[k * n] = torch.stack(prompts[:k])
+    counts = {}
+    with torch.no_grad():
+        for T, toks in sorted(calls.items()):
+            x = lm.embed({"tokens": toks})
+            B, S = x.shape[:2]
+            pos = torch.arange(S, device=x.device).expand(B, S)
+            a, _ = attn_block(p["attn"], cfg, rmsnorm(p["norm1"], x,
+                                                      cfg.norm_eps), pos)
+            h = rmsnorm(p["norm2"], x + a, cfg.norm_eps)
+            tok, _, _ = dispatch(route(p["moe"], cfg, h)[0], cfg)
+            counts[T] = (tok < T).sum(dim=1, dtype=torch.int32)
+    return counts
+
+
+def moe_plans(lm):
+    """moe_gmm's instance, (C tile, 16-byte loads, split over d), for every
+    expert weight of every MoE layer at every C of phase 4's path, x
+    allocated fresh as the layer allocates it."""
+    from repro_torch.kernels.moe_gmm import plan
+    cfg = lm.cfg
+    inst = set()
+    for i in range(cfg.pattern_period):
+        if not cfg.is_moe_layer(i):
+            continue
+        moe = lm.params["blocks"][f"pos{i}"]["moe"]
+        for key in ("w_in", "w_gate", "w_out"):
+            for w in moe.get(key, ()):       # one (E, d, f) per repeat
+                E, d, _ = w.shape
+                for C in path_capacities(cfg):
+                    p = plan(torch.empty((E, C, d), dtype=w.dtype,
+                                         device=w.device), w)
+                    inst.add((p.c_tile, p.vec, p.splits > 1))
+    return inst
+
+
+def check_gmm_counts(counts_by_t, gen):
+    """moe_gmm with the filled counts of an arctic decode step and of its
+    largest prefill group (``moe_counts``: route + dispatch on the path's
+    weights), both orientations, on an x that is non-zero in every row:
+    filled rows match the plain version, rows past the count are exact
+    zero."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.ref import moe_gmm_ref
+    from repro_torch.models.moe import capacity
+    arctic = get_config("arctic-480b")
+    steps = (("decode step", MAX_BATCH), ("prefill group", max(counts_by_t)))
+    for dtype in (torch.bfloat16, torch.float32):
+        rtol, atol = GMM_TOL[str(dtype).split(".")[1]]
+        for d, f in ((7168, 4864), (4864, 7168)):
+            w = rand((128, d, f), torch.float32, gen).mul_(d ** -0.5).to(dtype)
+            for step, T in steps:
+                counts = counts_by_t[T]
+                C = capacity(T, arctic)
+                x = rand((128, C, d), dtype, gen)
+                out = moe_gmm(x, w, counts)
+                err = max_err(out, moe_gmm_ref(x, w, counts), rtol, atol)
+                empty = (torch.arange(C, device="cuda")[None, :]
+                         >= counts[:, None])
+                check(bool((out[empty] == 0).all()),
+                      f"moe_gmm {step}: a row past its count is not zero")
+                live = int((counts > 0).sum())
+                phase(3, "kernels", f"moe_gmm arctic {step} counts (T {T}, C "
+                      f"{C}, {live} of 128 experts filled, {int(counts.sum())}"
+                      f" rows) d {d} -> f {f} {dtype}: max abs err {err:.3e} "
+                      f"(rtol {rtol}, atol {atol}); {int(empty.sum())} empty "
+                      "rows exact zero")
+                del x, out
+            del w
+            torch.cuda.empty_cache()
 
 
 def ssd_inputs(B, S, nh, hp, ng, ds, dtype, gen):
@@ -447,13 +584,24 @@ def phase_serve(arch, layers, smoke, why, smi):
               "contiguous and paged")
     phase(4, "serve", f"{cfg.name} contiguous and paged: equal tokens and "
           "finish order; every page freed, conservation holds")
+    moe_counts_by_t = None
+    if n_moe:
+        inst = moe_plans(lm)
+        check(lm.dtype == torch.bfloat16 and all(i[1] for i in inst),
+              f"{cfg.name}: a moe_gmm call leaves the bf16 tensor-core design"
+              f" with 16-byte loads: {cfg.dtype}, {sorted(inst)}")
+        phase(4, "serve", f"{cfg.name}: every moe_gmm call of the path runs "
+              f"the bf16 tensor-core design with 16-byte loads; instances "
+              f"(C tile, 16-byte loads, split over d) {sorted(inst)}")
+        if cfg.block_kind(0) == "attn" and cfg.is_moe_layer(0):
+            moe_counts_by_t = moe_counts(lm)
     time_engine(lm, smi)
     phase(5, "times", f"{cfg.name}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"(max_memory_allocated, weights {n_params * lm.dtype.itemsize / 2**30:.2f}"
           f" GiB); {smi}")
-    return {k: runs["contiguous"][1][k] + runs["paged"][1][k]
-            for k in runs["contiguous"][1]}
+    return ({k: runs["contiguous"][1][k] + runs["paged"][1][k]
+             for k in runs["contiguous"][1]}, moe_counts_by_t)
 
 
 def reference_check(arch):
@@ -567,6 +715,7 @@ def free_device_memory():
 
 def attention_rows(launches, flush, gen):
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
@@ -582,27 +731,45 @@ def attention_rows(launches, flush, gen):
     elt = 2
     rows = []
 
-    # flash at the largest prefill group of phase 4's first admit window
+    # flash at the largest prefill group of phase 4's first admit window,
+    # musicgen's (the row) and arctic's hd-128 heads; the library is SDPA
+    # pinned to its flash backend
     first = [PLENS[i % len(PLENS)] for i in range(MAX_BATCH)]
     S = max(first)
-    BH = first.count(S) * H
-    q, k, v = (rand((BH, S, hd), dtype, gen) for _ in range(3))
-    pairs = sum(min(i + 1, S) for i in range(S))
-    b_ms, b_by = bound(4 * BH * S * hd * elt,
-                       (4 * hd * pairs * BH, PEAK_BF16_FLOPS))
-    out = flash_attention(q, k, v, causal=True)
+    arctic = get_config("arctic-480b")
+    shapes = []
+    for label, heads, hdim in (("musicgen", H, hd),
+                               ("arctic", arctic.n_heads, arctic.head_dim)):
+        BH = first.count(S) * heads
+        q, k, v = (rand((BH, S, hdim), dtype, gen) for _ in range(3))
+        pairs = sum(min(i + 1, S) for i in range(S))
+        b_ms, b_by = bound(4 * BH * S * hdim * elt,
+                           (4 * hdim * pairs * BH, PEAK_BF16_FLOPS))
+        err = max_err(flash_attention(q, k, v, causal=True),
+                      flash_attention_ref(q, k, v), TOL["bfloat16"])
+        ms = time_ms(lambda: flash_attention(q, k, v), flush)
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=True), flush)
+        shapes.append(dict(
+            label=f"{label} BH={BH} S={S} hd={hdim} bf16 causal", err=err,
+            ms=ms, lib=lib, b_ms=b_ms, b_by=b_by,
+            plain=(time_ms(lambda: flash_attention_ref(q, k, v), flush)
+                   if label == "musicgen" else None)))
+        del q, k, v
+    mg, ar = shapes
     rows.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:98",
-        launches=launches["flash_attention"],
-        max_abs_err=max_err(out, flash_attention_ref(q, k, v), TOL[cfg.dtype]),
-        ms=time_ms(lambda: flash_attention(q, k, v), flush),
-        plain_ms=time_ms(lambda: flash_attention_ref(q, k, v), flush),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], is_causal=True), flush),
-        shape=f"musicgen BH={BH} S={S} hd={hd} {cfg.dtype} causal"))
+        launches=launches["flash_attention"], max_abs_err=mg["err"],
+        ms=mg["ms"], plain_ms=mg["plain"], bound_ms=mg["b_ms"],
+        bound_by=mg["b_by"], library_ms=mg["lib"],
+        shape=f"{mg['label']}; {ar['label']}: kernel {ar['ms']:.4f} ms, "
+              f"library {ar['lib']:.4f} ms, bound {ar['b_ms']:.4f} ms "
+              f"({ar['b_by']}), max abs err {ar['err']:.3e}; library: "
+              "scaled_dot_product_attention under sdpa_kernel("
+              "SDPBackend.FLASH_ATTENTION)"))
 
     # decode at phase 4's first wave, half way through its new tokens
     B = MAX_BATCH
@@ -662,9 +829,11 @@ def attention_rows(launches, flush, gen):
     return rows
 
 
-def gmm_row(launches, flush, gen):
-    """moe_gmm at arctic's decode step (C = 1, the most launched shape),
-    with its prefill shape (C = 30) timed beside it."""
+def gmm_row(launches, counts_by_t, flush, gen):
+    """moe_gmm at arctic's decode step: C = 1 with every row filled (the
+    row: the contract torch.bmm computes), then with the filled counts of
+    a decode step (``moe_counts``), whose bound prices only the filled
+    experts' weights; arctic's largest prefill group (C = 30) beside."""
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.ref import moe_gmm_ref
     E, d, f = 128, 7168, 4864
@@ -677,7 +846,18 @@ def gmm_row(launches, flush, gen):
         ms = time_ms(lambda: moe_gmm(x, w), flush)
         lib = time_ms(lambda: torch.bmm(x, w), flush)
         extra.append(f"C={C}: kernel {ms:.4f} ms, torch.bmm {lib:.4f} ms, "
-                     f"bound {b_ms:.4f} ms ({b_by})")
+                     f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound")
+    T, counts = MAX_BATCH, counts_by_t[MAX_BATCH]
+    live, filled = int((counts > 0).sum()), int(counts.sum())
+    c_ms, c_by = bound(2 * (live * d * f + filled * d + E * f),
+                       (2 * filled * d * f, PEAK_BF16_FLOPS))
+    err = max_err(moe_gmm(x, w, counts), moe_gmm_ref(x, w, counts),
+                  *GMM_TOL["bfloat16"])
+    cms = time_ms(lambda: moe_gmm(x, w, counts), flush)
+    extra.append(f"C=1 at a real decode step's counts (T {T}: {live} of {E} "
+                 f"experts filled, {filled} rows): kernel {cms:.4f} ms, bound "
+                 f"{c_ms:.4f} ms ({c_by}) on the filled experts' weights, "
+                 f"{c_ms / cms:.1%} of bound, max abs err {err:.3e}")
     row = dict(
         name="moe_gmm", route="cuda",
         source="src/repro_torch/kernels/csrc/moe_gmm.cu",
@@ -687,9 +867,59 @@ def gmm_row(launches, flush, gen):
                             *GMM_TOL["bfloat16"]),
         ms=ms, plain_ms=time_ms(lambda: moe_gmm_ref(x, w), flush, iters=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-        shape=f"arctic E={E} C=1 d={d} f={f} bf16 (a decode step); "
+        shape=f"arctic E={E} C=1 d={d} f={f} bf16, every row filled; "
               + "; ".join(extra) + "; library: torch.bmm")
+    del x, w
     return row
+
+
+SWEEP_SPLITS = (1, 2, 3, 4, 7)
+
+
+def gmm_split_sweep(counts_by_t, flush, gen, name):
+    """moe_gmm at every C of arctic's path, both orientations, with the
+    filled counts of the call that gives that C (``moe_counts``), and at
+    C 1 with every row filled: times at several splits over d beside the
+    one ``plan`` picks. The split rule in kernels/moe_gmm.py rests on
+    these times."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gmm import launch, plan
+    from repro_torch.kernels.ref import moe_gmm_ref
+    from repro_torch.models.moe import capacity
+    arctic = get_config("arctic-480b")
+    E = arctic.n_experts
+    cases = [(capacity(T, arctic), T, c) for T, c in sorted(
+        counts_by_t.items())] + [(1, None, None)]
+    for d, f in ((7168, 4864), (4864, 7168)):
+        w = rand((E, d, f), torch.float32, gen).mul_(d ** -0.5).to(
+            torch.bfloat16)
+        for C, T, counts in cases:
+            x = rand((E, C, d), torch.bfloat16, gen)
+            p = plan(x, w)
+            ref = moe_gmm_ref(x, w, counts)
+            times = {}
+            for sp in sorted(set(SWEEP_SPLITS) | {p.splits}):
+                q = p._replace(splits=sp)
+                max_err(launch(x, w, counts, q), ref, *GMM_TOL["bfloat16"])
+                times[sp] = time_ms(lambda: launch(x, w, counts, q), flush)
+            best = min(times, key=times.get)
+            live = E if counts is None else int((counts > 0).sum())
+            rows = E * C if counts is None else int(counts.sum())
+            b_ms, b_by = bound(2 * (live * d * f + rows * d + E * C * f),
+                               (2 * rows * d * f, PEAK_BF16_FLOPS))
+            what = ("every row filled" if counts is None else
+                    f"T {T}: {live} of {E} experts filled, {rows} rows")
+            phase(5, "times", f"moe_gmm split sweep d {d} -> f {f}, C {C} "
+                  f"({what}): " + ", ".join(
+                      f"{sp} ranges {t:.4f} ms" for sp, t in times.items())
+                  + f"; plan picks {p.splits} ({times[p.splits]:.4f} ms, "
+                  f"{b_ms / times[p.splits]:.1%} of the {b_ms:.4f} ms bound "
+                  f"({b_by}) on the filled experts), fastest {best} "
+                  f"({times[best] / times[p.splits]:.1%} of plan's time); "
+                  f"{name}")
+            del x, ref
+        del w
+        free_device_memory()
 
 
 def ssd_flops(B, S, nh, hp, ds, chunk):
@@ -733,12 +963,13 @@ def ssd_row(launches, flush, gen):
               "PyTorch call computes a chunked SSD scan")
 
 
-def phase_times(launches, name):
+def phase_times(launches, arctic_counts, name):
     gen = torch.Generator(device="cuda").manual_seed(4)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     rows = attention_rows(launches, flush, gen)
-    rows.append(gmm_row(launches, flush, gen))
+    rows.append(gmm_row(launches, arctic_counts, flush, gen))
     free_device_memory()
+    gmm_split_sweep(arctic_counts, flush, gen, name)
     rows.append(ssd_row(launches, flush, gen))
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -763,16 +994,21 @@ def main():
     phase_build()
     phase_kernels()
     free_device_memory()
-    launches = {}
+    launches, arctic_counts = {}, None
     for arch, layers, smoke, why in PATHS:
-        counts = phase_serve(arch, layers, smoke, why, smi)
+        counts, moe_counts_by_t = phase_serve(arch, layers, smoke, why, smi)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         free_device_memory()
+        if arch == "arctic-480b":
+            arctic_counts = moe_counts_by_t
+            check_gmm_counts(arctic_counts,
+                             torch.Generator(device="cuda").manual_seed(6))
+            free_device_memory()
         if arch in ("musicgen-large", "mamba2-1.3b"):
             reference_check(arch)
             free_device_memory()
-    rows = phase_times(launches, smi)
+    rows = phase_times(launches, arctic_counts, smi)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -42,8 +42,9 @@ SIGNATURES = {
         "paged_decode_attention_fwd": (_P,) * 7 + (_I,) * 7 + (_P,),
     },
     "moe_gmm": {
-        # x, w, out, E, C, d, f, dtype, stream
-        "moe_gmm_fwd": (_P,) * 3 + (_I,) * 5 + (_P,),
+        # x, w, counts, part, out, E, C, d, f, c_tile, vec, splits, dtype,
+        # stream
+        "moe_gmm_fwd": (_P,) * 5 + (_I,) * 8 + (_P,),
     },
     "ssd_scan": {
         # x, dt, A, Bg, Cg, y, state, B, S, nh, hp, ng, ds, chunk, dtype,

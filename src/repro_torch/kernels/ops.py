@@ -55,11 +55,13 @@ def paged_decode(q, k_pages, v_pages, page_table, lengths):
                                       lengths)
 
 
-def gmm(x, w):
-    """(E, C, d) @ (E, d, f) -> (E, C, f) grouped expert GEMM."""
+def gmm(x, w, counts=None):
+    """(E, C, d) @ (E, d, f) -> (E, C, f) grouped expert GEMM; rows at or
+    past ``counts[e]`` (an (E,) int32 tensor, or None: all filled) are
+    zero."""
     if _on_cuda(x, "gmm"):
-        return moe_gmm(x, w)
-    return moe_gmm_ref(x, w)
+        return moe_gmm(x, w, counts)
+    return moe_gmm_ref(x, w, counts)
 
 
 def ssd(x, dt, A, Bg, Cg, *, chunk: int):

@@ -74,10 +74,21 @@ def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths):
     return decode_attention_ref(q, k_view, v_view, lengths)
 
 
-def moe_gmm_ref(x, w):
+def moe_gmm_ref(x, w, counts=None):
     """Grouped expert GEMM. x: (E, C, d); w: (E, d, f) -> (E, C, f) in
-    x's dtype, from an fp32 product (``repro.kernels.ref.moe_gmm_ref``)."""
-    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    x's dtype, from an fp32 product (``repro.kernels.ref.moe_gmm_ref``).
+
+    counts: optional (E,) filled slots per expert, a prefix of its C rows;
+    output rows at or past ``counts[e]`` are exact zero, whatever x holds
+    there. None means every row is filled.
+    """
+    out = torch.einsum("ecd,edf->ecf", x.float(), w.float())
+    if counts is not None:
+        C = x.shape[1]
+        filled = (torch.arange(C, device=x.device)[None, :]
+                  < counts.to(x.device)[:, None])
+        out = torch.where(filled[..., None], out, 0.0)
+    return out.to(x.dtype)
 
 
 def ssd_scan_ref(x, dt, A, Bg, Cg, *, chunk: int):

@@ -43,7 +43,9 @@ def attn_block(p, cfg, x, positions, *, cache=None, lengths=None,
         H, hd = cfg.n_heads, cfg.head_dim
 
         def heads_major(t):               # (B, S, H, hd) -> (B*H, S, hd)
-            return t.transpose(1, 2).reshape(B * H, S, hd)
+            # contiguous: at B == 1 the reshape is a strided view, which
+            # the kernel refuses
+            return t.transpose(1, 2).reshape(B * H, S, hd).contiguous()
 
         o = ops.attention(heads_major(q), heads_major(repeat_kv(k, H)),
                           heads_major(repeat_kv(v, H)), causal=True)

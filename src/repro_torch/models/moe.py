@@ -82,15 +82,19 @@ def moe_apply(p, cfg, x, ids, wts):
     gate[(ids.reshape(T * K) * C + slot)[kept]] = wts.reshape(
         T * K).float()[kept]
     xf = x.reshape(T, d)
-    valid = (tok < T)[..., None]
-    xe = torch.where(valid, xf[tok.clamp(max=T - 1)], 0)    # (E, C, d)
-    h = ops.gmm(xe, p["w_in"])
+    valid = tok < T
+    xe = torch.where(valid[..., None], xf[tok.clamp(max=T - 1)], 0)
+    # an expert's kept slots are a prefix of its C rows: the count says
+    # which rows the products need (the rest are zero: silu(0) * 0 and
+    # relu(0)^2 keep h's zero too), so an empty expert reads no weight
+    counts = valid.sum(dim=1, dtype=torch.int32)           # (E,), no sync
+    h = ops.gmm(xe, p["w_in"], counts)
     if cfg.mlp_act == "swiglu":
-        g = ops.gmm(xe, p["w_gate"])
+        g = ops.gmm(xe, p["w_gate"], counts)
         h = F.silu(g.float()).to(h.dtype) * h
     else:
         h = torch.relu(h).square()
-    ye = ops.gmm(h, p["w_out"])
+    ye = ops.gmm(h, p["w_out"], counts)
     ye = (ye.float() * gate.reshape(E, C, 1)).to(x.dtype)
     # empty slots carry token T: they add into a spare row that is cut off
     y = torch.zeros(T + 1, d, dtype=x.dtype, device=x.device)

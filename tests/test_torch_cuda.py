@@ -41,7 +41,14 @@ def _close(out, ref, dtype):
 @pytest.mark.parametrize("BH,S,Sk,hd,causal",
                          [(2, 128, 128, 64, True), (3, 96, 96, 32, True),
                           (2, 64, 192, 64, False), (1, 200, 200, 16, True),
-                          (4, 32, 32, 128, True)])
+                          (4, 32, 32, 128, True),
+                          # every hd at an S that is no tile multiple
+                          (2, 77, 77, 16, True), (2, 130, 130, 32, True),
+                          (2, 200, 200, 64, True), (2, 333, 333, 128, True),
+                          # Sk != S without the causal mask, both ways
+                          (3, 100, 37, 32, False), (2, 40, 300, 128, False),
+                          # arctic's prefill heads: 2 prompts x 56, S 512
+                          (112, 512, 512, 128, True)])
 def test_flash_kernel_matches_plain(card, BH, S, Sk, hd, causal, dtype):
     q, k, v = (torch.randn(s, generator=card, device="cuda").to(dtype)
                for s in ((BH, S, hd), (BH, Sk, hd), (BH, Sk, hd)))
@@ -94,10 +101,13 @@ SSD_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (8e-2, 8e-2)}
 @pytest.mark.parametrize("E,C,d,f", [(4, 32, 64, 128), (3, 5, 37, 53),
                                      (2, 70, 33, 31), (8, 1, 512, 384),
                                      (8, 2, 64, 64), (8, 3, 64, 64),
-                                     (4, 10, 96, 160), (4, 15, 96, 160)])
+                                     (4, 10, 96, 160), (4, 15, 96, 160),
+                                     (4, 30, 256, 136), (3, 64, 200, 96),
+                                     (2, 100, 72, 264), (3, 100, 40, 37)])
 def test_gmm_kernel_matches_plain(card, E, C, d, f, dtype):
-    """Ragged C, d and f, C = 1 (a decode step), C over one tile, and a C
-    for each C-tile instance (1, 2, 4, 8, 16, 32 rows)."""
+    """Ragged C, d and f, C = 1 (a decode step), C over one tile, a C for
+    each C-tile instance (1, 2, 4, 8, 16, 32 rows in fp32; 8, 16, 32 in
+    bf16), and C of 30, 64 and 100 (several C tiles)."""
     x = torch.randn(E, C, d, generator=card, device="cuda").to(dtype)
     w = (0.1 * torch.randn(E, d, f, generator=card, device="cuda")).to(dtype)
     before = ops.launch_counts()["moe_gmm"]
@@ -106,6 +116,50 @@ def test_gmm_kernel_matches_plain(card, E, C, d, f, dtype):
     rtol, atol = GMM_TOL[dtype]
     torch.testing.assert_close(out.float(), moe_gmm_ref(x, w).float(),
                                rtol=rtol, atol=atol)
+
+
+def _gmm_counts_case(card, E, C, d, f, counts, dtype):
+    """x with non-zero values in every row, also past the counts."""
+    x = torch.randn(E, C, d, generator=card, device="cuda").to(dtype)
+    w = (0.1 * torch.randn(E, d, f, generator=card, device="cuda")).to(dtype)
+    cnt = torch.tensor(counts, dtype=torch.int32, device="cuda")
+    before = ops.launch_counts()["moe_gmm"]
+    out = ops.gmm(x, w, cnt)
+    assert ops.launch_counts()["moe_gmm"] == before + 1
+    rtol, atol = GMM_TOL[dtype]
+    torch.testing.assert_close(out.float(), moe_gmm_ref(x, w, cnt).float(),
+                               rtol=rtol, atol=atol)
+    past = torch.arange(C, device="cuda")[None, :] >= cnt[:, None]
+    assert bool((out[past] == 0).all())
+    return x, w, cnt, out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,d,f,counts",
+                         [(4, 1, 256, 128, [0, 0, 0, 0]),      # all empty
+                          (6, 1, 512, 384, [0, 1, 0, 0, 1, 0]),
+                          (4, 5, 96, 160, [0, 2, 5, 1]),       # ragged
+                          (3, 40, 64, 72, [40, 0, 33]),        # count = C
+                          (3, 7, 37, 53, [3, 7, 0]),           # ragged d, f
+                          (4, 30, 256, 136, [30, 30, 30, 30])])
+def test_gmm_counts_kernel_matches_plain(card, E, C, d, f, counts, dtype):
+    """Rows at or past an expert's count come out exact zero although x
+    holds non-zero values there; filled rows match the plain version."""
+    _gmm_counts_case(card, E, C, d, f, counts, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_split_over_d_matches_plain_and_repeats(card, dtype):
+    """A decode-step shape where the bf16 kernel splits d into ranges
+    whose fp32 partials a second pass sums in order: equal to the plain
+    version, and bit for bit equal between two calls."""
+    from repro_torch.kernels.moe_gmm import plan
+    E, C, d, f = 16, 1, 3072, 256
+    counts = [1 if e % 3 == 0 else 0 for e in range(E)]
+    x, w, cnt, out = _gmm_counts_case(card, E, C, d, f, counts, dtype)
+    want = 3 if dtype == torch.bfloat16 else 1
+    assert plan(x, w).splits == want
+    assert torch.equal(ops.gmm(x, w, cnt), out)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -131,3 +185,25 @@ def test_ssd_kernel_matches_plain(card, B, S, nh, hp, ng, ds, chunk, dtype):
     rtol, atol = SSD_TOL[dtype]
     torch.testing.assert_close(y, y_ref, rtol=rtol, atol=atol)
     torch.testing.assert_close(state, state_ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "arctic-480b"])
+def test_prefill_of_one_request_matches_cpu(card, arch):
+    """A prefill group of one request (B = 1), as a lone admit makes: the
+    kernels take the attention heads contiguous, and the card's logits
+    match the CPU's plain path in fp32."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import LM, tree_map
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(1, cfg.vocab_size, (1, 40),
+                         generator=torch.Generator().manual_seed(1))
+    want, _ = LM(cfg, params, device="cpu").prefill({"tokens": toks})
+    before = ops.launch_counts()["flash_attention"]
+    got, _ = LM(cfg, tree_map(lambda t: t.cuda(), params),
+                device="cuda").prefill({"tokens": toks})
+    assert ops.launch_counts()["flash_attention"] > before
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)

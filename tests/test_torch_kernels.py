@@ -228,6 +228,53 @@ def test_gmm_plain_matches_pallas(E, C, d, f, bc, bf, bd, dtype):
         np.testing.assert_allclose(_f32(out), _f32(want), **GMM_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("counts", [[0, 0, 0, 0], [3, 0, 16, 9],
+                                    [16, 16, 16, 16], [0, 16, 0, 0]],
+                         ids=["empty", "partial", "full", "one-full"])
+def test_gmm_plain_with_counts_matches_pallas(counts, dtype):
+    """The counts contract against the Pallas kernel on an x whose rows at
+    or past the counts are zeroed (what the MoE layer hands it): the port
+    gets the raw x, non-zero past the counts, and must give the same
+    output, with those rows exact zero."""
+    E, C, d, f = 4, 16, 32, 64
+    r = np.random.default_rng(17)
+    x = r.standard_normal((E, C, d)).astype(np.float32)
+    filled = np.arange(C)[None, :] < np.asarray(counts)[:, None]
+    jx, _ = _both(np.where(filled[..., None], x, 0).astype(np.float32), dtype)
+    _, tx = _both(x, dtype)
+    jw, tw = _both((r.standard_normal((E, d, f)) * 0.1).astype(np.float32),
+                   dtype)
+    cnt = torch.tensor(counts, dtype=torch.int32)
+    out = ops.gmm(tx, tw, cnt)
+    assert out.dtype == tx.dtype and out.shape == (E, C, f)
+    assert bool((out[torch.from_numpy(~filled)] == 0).all())
+    pallas = pallas_gmm(jx, jw, block_c=16, block_f=32, block_d=32,
+                        interpret=True)
+    for want in (pallas, jref.moe_gmm_ref(jx, jw)):
+        np.testing.assert_allclose(_f32(out), _f32(want), **GMM_TOL[dtype])
+
+
+def test_gmm_plan_splits_only_small_c():
+    """The bf16 kernel splits d at C <= 10 (arctic's decode step and its
+    smaller prefill groups: 7 ranges of d 7168, 4 of d 4864, each of at
+    least 16 stages of 64), not at C 15 and up, and never in fp32; the C
+    tile pads C to 8, 16 or 32 rows in bf16."""
+    from repro_torch.kernels.moe_gmm import d_splits, plan
+    assert [d_splits(1, 7168), d_splits(1, 4864)] == [7, 4]
+    assert [d_splits(30, 7168), d_splits(30, 4864), d_splits(3, 64)] == [1] * 3
+    assert d_splits(10, 7168) == 7 and d_splits(15, 7168) == 1
+    for C, tile in ((1, 8), (9, 16), (30, 32), (100, 32)):
+        p = plan(torch.zeros(2, C, 64, dtype=torch.bfloat16),
+                 torch.zeros(2, 64, 72, dtype=torch.bfloat16))
+        assert (p.c_tile, p.vec) == (tile, True)
+    p = plan(torch.zeros(2, 3, 37, dtype=torch.bfloat16),
+             torch.zeros(2, 37, 53, dtype=torch.bfloat16))
+    assert not p.vec
+    p = plan(torch.zeros(2, 1, 7168), torch.zeros(2, 7168, 8))
+    assert (p.c_tile, p.vec, p.splits) == (1, False, 1)
+
+
 def test_ssd_plain_rejects_a_broken_chunk():
     x = torch.zeros(1, 20, 2, 4)
     bc = torch.zeros(1, 20, 1, 4)

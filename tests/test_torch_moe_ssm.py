@@ -124,6 +124,69 @@ def test_route_and_moe_apply_match_jax_with_drops():
         seen[e] += 1
 
 
+def _arctic_moe_layer(seed=1):
+    """fp32 arctic-smoke MoE layer: (cfg, jax params, port params)."""
+    cfg = dataclasses.replace(get_smoke_config("arctic-480b"),
+                              dtype="float32")
+    jparams = JaxLM(cfg).init(jax.random.key(seed))[0]
+    jp = jax.tree.map(lambda a: a[0], jparams["blocks"]["pos0"]["moe"])
+    return cfg, jp, params_from_jax(_np_tree(jp), "cpu")
+
+
+def test_dispatch_kept_slots_form_a_prefix():
+    """Each expert's kept slots are its rows 0..n_e - 1, n_e = min(its
+    assignments, C), with drops present: routed ids of a real layer, and
+    skewed random ids where a few experts overflow."""
+    cfg, _, tp = _arctic_moe_layer()
+    x = np.random.default_rng(5).standard_normal(
+        (2, 24, cfg.d_model)).astype(np.float32)
+    routed, _, _ = tmoe.route(tp, cfg, torch.from_numpy(x))
+    r = np.random.default_rng(8)
+    skewed = torch.from_numpy(np.minimum(
+        r.geometric(0.35, (3, 16, cfg.top_k)) - 1,
+        cfg.n_experts - 1)).long()
+    for ids in (routed, skewed):
+        tok, _, kept = tmoe.dispatch(ids, cfg)
+        T, C = ids.shape[0] * ids.shape[1], tok.shape[1]
+        assert 0 < int((~kept).sum()) < kept.numel()      # drops present
+        filled = tok < T
+        counts = filled.sum(dim=1)
+        assert torch.equal(filled, torch.arange(C)[None, :]
+                           < counts[:, None])
+        assigned = torch.bincount(ids.reshape(-1), minlength=cfg.n_experts)
+        assert torch.equal(counts, assigned.clamp(max=C))
+
+
+def test_moe_apply_with_counts_matches_jax_local(monkeypatch):
+    """moe_apply hands every expert product the filled counts, (tok < T)
+    per expert, and still equals the reference's ``_moe_local`` (no mesh,
+    every expert local) in fp32 with drops present."""
+    cfg, jp, tp = _arctic_moe_layer()
+    x = np.random.default_rng(5).standard_normal(
+        (2, 24, cfg.d_model)).astype(np.float32)
+    seen = []
+    gmm = tmoe.ops.gmm
+
+    def spy(xe, w, counts=None):
+        seen.append(counts)
+        return gmm(xe, w, counts)
+
+    monkeypatch.setattr(tmoe.ops, "gmm", spy)
+    tids, twts, _ = tmoe.route(tp, cfg, torch.from_numpy(x))
+    got = tmoe.moe_apply(tp, cfg, torch.from_numpy(x), tids, twts)
+    tok, _, kept = tmoe.dispatch(tids, cfg)
+    assert 0 < int((~kept).sum()) < kept.numel()
+    want_counts = (tok < 48).sum(dim=1).to(torch.int32)
+    assert len(seen) == 3 and all(torch.equal(c, want_counts) for c in seen)
+    assert int(want_counts.max()) == 15                # a full expert
+    jids, jwts, _ = jmoe.route(jp, cfg, jnp.asarray(x))
+    want = jmoe._moe_local(jnp.asarray(x), jids, jwts, jp["w_in"],
+                           jp["w_gate"], jp["w_out"], cfg=cfg,
+                           n_local=cfg.n_experts, axis=None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_moe_capacity_couples_the_rows_of_a_call():
     """The reference's capacity spans the call: a row's output can change
     when batch mates are added, and at capacity_factor = E / k (C = T)
