@@ -8,16 +8,20 @@ without its final line:
 1. device: the card's name and power limit; TF32 off for matmul and cuDNN.
 2. build: nvcc builds the kernels from ``src/repro_torch/kernels/csrc``.
 3. kernels: each kernel against its plain PyTorch version on the card,
-   bf16 and fp32: attention at musicgen-large and qwen2-7b widths (ragged
-   lengths, zero-length rows, shuffled pages, paged == contiguous bit for
-   bit), moe_gmm at the C of every arctic-480b and jamba-smoke prefill
-   group and decode step (every instance: C tile, 16-byte or element-wise
-   loads, split over d or not), ssd_scan at every mamba2-1.3b and
-   jamba-smoke prefill group shape, grouped, and at each (hp, ds)
-   instance. After arctic's serve run, moe_gmm with the filled counts of
-   a decode step and of the largest prefill group, from ``route`` +
-   ``dispatch`` on the path's weights (rows past a count must be exact
-   zero).
+   bf16 and fp32: flash at musicgen-large and qwen2-7b widths (ragged
+   lengths); decode at G 1, 2, 7 and 8 over every head dim (musicgen,
+   qwen2 and arctic heads among them), each with a row of length 0, one
+   at cap and rows ending mid-split, shuffled pages, paged == contiguous
+   bit for bit and two calls of each equal bit for bit; moe_gmm at the C
+   of every arctic-480b and jamba-smoke prefill group and decode step
+   (every instance: C tile, 16-byte or element-wise loads, split over d
+   or not), ssd_scan at every mamba2-1.3b and jamba-smoke prefill group
+   shape, grouped, and at each (hp, ds) instance; then the device
+   kernels one call of each wrapper runs at phase 5's shapes
+   (torch.profiler). After arctic's serve run, moe_gmm with the filled
+   counts of a decode step and of the largest prefill group, from
+   ``route`` + ``dispatch`` on the path's weights (rows past a count must
+   be exact zero).
 4. serve: four paths, one model resident at a time (weights from a
    seeded ``torch.Generator``): musicgen-large at full width and depth,
    mamba2-1.3b at full width and depth, arctic-480b at full width cut to
@@ -37,12 +41,16 @@ without its final line:
    torch.profiler; then CUDA-event times of each kernel, its plain
    version and, where one PyTorch call computes the same function, that
    call, at the shapes of phase 4, beside the least time the card could
-   take: flash at musicgen's and arctic's heads (SDPA pinned to its flash
-   backend), moe_gmm at C 1 and 30 with every row filled (beside
-   torch.bmm) and at a real decode step's counts (bound on the filled
-   experts' weights); and moe_gmm at every C of arctic's path, with the
-   counts of the call that gives it, at several splits over d beside the
-   one ``plan`` picks (the measurements its split rule rests on).
+   take, and the device kernels per call from phase 3: flash at
+   musicgen's and arctic's heads (SDPA pinned to its flash backend),
+   decode and paged decode at musicgen's and arctic's heads (SDPA with a
+   length mask beside), ssd_scan at each mamba2 prefill group shape with
+   every hp tile of its bf16 grid, moe_gmm at C 1 and 30 with every row
+   filled (beside torch.bmm) and at a real decode step's counts (bound on
+   the filled experts' weights); and moe_gmm at every C of arctic's path,
+   with the counts of the call that gives it, at several splits over d
+   beside the one ``plan`` picks (the measurements its split rule rests
+   on).
 
 The last three lines are the ``nvidia-smi`` name and power limit, a JSON
 object with one entry per kernel, and ``{"ok": true, "device": ...}``.
@@ -61,6 +69,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12      # H100 SXM dense TF32 tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 TOL = {"float32": 2e-5,       # tests/test_kernels.py:24: fp32 sums reorder
        "bfloat16": 5e-2}      # tests/test_kernels.py:25: one bf16 ulp ~ 1e-2
@@ -213,10 +222,17 @@ def phase_kernels():
         ("qwen2 ragged S=200", 28, 200, 200, 128, True),
         ("qwen2 cross S=128 Sk=320", 28, 128, 320, 128, False),
     ]
-    decode_cases = [  # (label, B, H, KVH, hd, S, lengths)
-        ("musicgen", 8, 32, 32, 64, 1024,
+    # (label, B, H, KVH, hd, S, lengths): G 1, 2, 7 and 8 over every hd;
+    # each case has a row of length 0, one at cap, and rows ending
+    # mid-split
+    decode_cases = [
+        ("musicgen G=1 hd=64", 8, 32, 32, 64, 1024,
          [0, 1, 127, 128, 129, 540, 1023, 1024]),
-        ("qwen2 G=7", 4, 28, 4, 128, 1024, [0, 300, 1024, 777]),
+        ("qwen2 G=7 hd=128", 4, 28, 4, 128, 1024, [0, 300, 1024, 777]),
+        ("arctic G=7 hd=128", 8, 56, 8, 128, 1024,
+         [1024, 0, 128, 200, 513, 1, 896, 1000]),
+        ("G=2 hd=16", 4, 8, 4, 16, 512, [512, 0, 200, 77]),
+        ("G=8 hd=32", 3, 16, 2, 32, 640, [640, 333, 0]),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[str(dtype).split(".")[1]]
@@ -239,6 +255,10 @@ def phase_kernels():
             err = max_err(out, ref, tol)
             zero = [i for i, n in enumerate(lens) if n == 0]
             check(bool((out[zero] == 0).all()), "length-0 row not zero")
+            check(torch.equal(decode_attention(q, kc, vc, lengths,
+                                               block_s=DECODE_BLOCK_S), out),
+                  f"decode_attention not bitwise repeatable ({label}, "
+                  f"{dtype})")
             kp, table = paged_layout(kc, DECODE_BLOCK_S, cpu_gen)
             vp = torch.full_like(kp, float("nan"))
             vp[table.reshape(-1).long()] = vc.reshape(-1, DECODE_BLOCK_S,
@@ -248,11 +268,16 @@ def phase_kernels():
                 q, kp, vp, table, lengths), tol)
             check(torch.equal(paged, out),
                   f"paged != contiguous bitwise ({label}, {dtype})")
-            phase(3, "kernels", f"decode_attention {label} {dtype}: max abs"
-                  f" err {err:.3e}; paged_decode_attention max abs err "
-                  f"{perr:.3e} (tol {tol}); paged == contiguous bitwise at "
-                  f"page_size == block_s == {DECODE_BLOCK_S}; length-0 rows "
-                  "exact zero")
+            check(torch.equal(paged_decode_attention(q, kp, vp, table,
+                                                     lengths), paged),
+                  f"paged_decode_attention not bitwise repeatable ({label},"
+                  f" {dtype})")
+            phase(3, "kernels", f"decode_attention {label} (B {B}, H {H}, "
+                  f"KVH {KVH}, S {S}, lengths {lens}) {dtype}: max abs err "
+                  f"{err:.3e}; paged_decode_attention max abs err {perr:.3e}"
+                  f" (tol {tol}); paged == contiguous bitwise at page_size =="
+                  f" block_s == {DECODE_BLOCK_S}; two calls of each equal "
+                  "bitwise; length-0 rows exact zero")
     check_gmm(gen)
     check_ssd(gen)
 
@@ -717,12 +742,8 @@ def attention_rows(launches, flush, gen):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_decode_attention import (
-        paged_decode_attention)
-    from repro_torch.kernels.ref import (
-        decode_attention_ref, flash_attention_ref, paged_decode_attention_ref)
+    from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.models.blocks import DECODE_BLOCK_S
 
     cfg = get_config(ARCH)
@@ -771,8 +792,54 @@ def attention_rows(launches, flush, gen):
               "scaled_dot_product_attention under sdpa_kernel("
               "SDPBackend.FLASH_ATTENTION)"))
 
-    # decode at phase 4's first wave, half way through its new tokens
-    B = MAX_BATCH
+    # decode at phase 4's first wave, half way through its new tokens:
+    # musicgen's heads (the rows) and arctic's GQA heads beside them
+    shapes = [decode_shape(label, heads, kvh, hdim, first, flush, gen)
+              for label, heads, kvh, hdim in (
+                  ("musicgen", H, KVH, hd),
+                  ("arctic", arctic.n_heads, arctic.n_kv_heads,
+                   arctic.head_dim))]
+    mg, ar = shapes
+    for name, replaces, lib in (
+            ("decode_attention", "decode_attention.py:83", "lib"),
+            ("paged_decode_attention", "paged_decode_attention.py:90",
+             None)):
+        pre = "" if name == "decode_attention" else "paged_"
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/decode_attention.cu",
+            replaces=f"src/repro/kernels/{replaces}",
+            launches=launches[name], max_abs_err=mg[pre + "err"],
+            ms=mg[pre + "ms"], plain_ms=mg[pre + "plain"],
+            bound_ms=mg[pre + "b_ms"], bound_by=mg[pre + "b_by"],
+            library_ms=mg["lib"] if lib else None,
+            shape=f"{mg['label']}; {ar['label']}: kernel "
+                  f"{ar[pre + 'ms']:.4f} ms, "
+                  + (f"library {ar['lib']:.4f} ms, " if lib else "")
+                  + f"plain {ar[pre + 'plain']:.4f} ms, bound "
+                  f"{ar[pre + 'b_ms']:.4f} ms ({ar[pre + 'b_by']}), "
+                  f"{ar[pre + 'b_ms'] / ar[pre + 'ms']:.1%} of bound, max "
+                  f"abs err {ar[pre + 'err']:.3e}; "
+                  + ("library: scaled_dot_product_attention with a length "
+                     "mask (enable_gqa at G > 1)" if lib else
+                     f"page_size={DECODE_BLOCK_S}, shuffled pages; library "
+                     "n/a: no single PyTorch call attends through a page "
+                     "table")))
+    return rows
+
+
+def decode_shape(label, H, KVH, hd, first, flush, gen):
+    """Contiguous and paged decode at batch MAX_BATCH, half way through
+    phase 4's first wave, bf16: kernel, plain and masked-SDPA times,
+    bounds and errors."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention)
+    from repro_torch.kernels.ref import (
+        decode_attention_ref, paged_decode_attention_ref)
+    from repro_torch.models.blocks import DECODE_BLOCK_S
+    B, dtype, elt = MAX_BATCH, torch.bfloat16, 2
     lens = [p + NEW_TOKENS // 2 for p in first]
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     qd = rand((B, H, hd), dtype, gen)
@@ -781,52 +848,100 @@ def attention_rows(launches, flush, gen):
     kv_bytes = 2 * sum(lens) * KVH * hd * elt
     io_bytes = 2 * B * H * hd * elt + 4 * B
     flops = 4 * sum(lens) * H * hd
-    b_ms, b_by = bound(kv_bytes + io_bytes, (flops, PEAK_BF16_FLOPS))
+    r = dict(label=f"{label} B={B} H={H} KVH={KVH} hd={hd} S={MAX_LEN} "
+                   f"block_s={DECODE_BLOCK_S} lengths={lens} bf16")
+    r["b_ms"], r["b_by"] = bound(kv_bytes + io_bytes, (flops, PEAK_BF16_FLOPS))
     valid = (torch.arange(MAX_LEN, device="cuda")[None, :]
              < lengths[:, None])[:, None, None, :]
     kt, vt = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
-    out = decode_attention(qd, kc, vc, lengths, block_s=DECODE_BLOCK_S)
-    rows.append(dict(
-        name="decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:83",
-        launches=launches["decode_attention"],
-        max_abs_err=max_err(out, decode_attention_ref(qd, kc, vc, lengths),
-                            TOL[cfg.dtype]),
-        ms=time_ms(lambda: decode_attention(qd, kc, vc, lengths,
-                                            block_s=DECODE_BLOCK_S), flush),
-        plain_ms=time_ms(lambda: decode_attention_ref(qd, kc, vc, lengths),
-                         flush),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qd[:, :, None], kt, vt, attn_mask=valid), flush),
-        shape=f"musicgen B={B} H={H} KVH={KVH} hd={hd} S={MAX_LEN} "
-              f"block_s={DECODE_BLOCK_S} lengths={lens} {cfg.dtype}"))
+    gqa = {"enable_gqa": True} if H != KVH else {}
 
-    cpu_gen = torch.Generator().manual_seed(5)
-    kp, table = paged_layout(kc, DECODE_BLOCK_S, cpu_gen)
+    def run():
+        return decode_attention(qd, kc, vc, lengths, block_s=DECODE_BLOCK_S)
+
+    out = run()
+    r["err"] = max_err(out, decode_attention_ref(qd, kc, vc, lengths),
+                       TOL["bfloat16"])
+    r["ms"] = time_ms(run, flush)
+    r["plain"] = time_ms(lambda: decode_attention_ref(qd, kc, vc, lengths),
+                         flush)
+    r["lib"] = time_ms(lambda: F.scaled_dot_product_attention(
+        qd[:, :, None], kt, vt, attn_mask=valid, **gqa), flush)
+
+    kp, table = paged_layout(kc, DECODE_BLOCK_S, torch.Generator(
+    ).manual_seed(5))
     vp = torch.full_like(kp, float("nan"))
     vp[table.reshape(-1).long()] = vc.reshape(-1, DECODE_BLOCK_S, KVH, hd)
-    b_ms, b_by = bound(kv_bytes + io_bytes + table.numel() * 4,
-                       (flops, PEAK_BF16_FLOPS))
-    paged = paged_decode_attention(qd, kp, vp, table, lengths)
-    check(torch.equal(paged, out), "timed shapes: paged != contiguous")
-    rows.append(dict(
-        name="paged_decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/paged_decode_attention.py:90",
-        launches=launches["paged_decode_attention"],
-        max_abs_err=max_err(paged, paged_decode_attention_ref(
-            qd, kp, vp, table, lengths), TOL[cfg.dtype]),
-        ms=time_ms(lambda: paged_decode_attention(qd, kp, vp, table,
-                                                  lengths), flush),
-        plain_ms=time_ms(lambda: paged_decode_attention_ref(
-            qd, kp, vp, table, lengths), flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"as decode_attention, page_size={DECODE_BLOCK_S}, shuffled "
-              "pages; library n/a: no single PyTorch call attends through a "
-              "page table"))
-    return rows
+
+    def run_paged():
+        return paged_decode_attention(qd, kp, vp, table, lengths)
+
+    paged = run_paged()
+    check(torch.equal(paged, out), f"timed shapes ({label}): paged != "
+          "contiguous")
+    r["paged_b_ms"], r["paged_b_by"] = bound(
+        kv_bytes + io_bytes + table.numel() * 4, (flops, PEAK_BF16_FLOPS))
+    r["paged_err"] = max_err(paged, paged_decode_attention_ref(
+        qd, kp, vp, table, lengths), TOL["bfloat16"])
+    r["paged_ms"] = time_ms(run_paged, flush)
+    r["paged_plain"] = time_ms(lambda: paged_decode_attention_ref(
+        qd, kp, vp, table, lengths), flush)
+    return r
+
+
+def launches_per_call(fn):
+    """Device kernels one call of ``fn`` runs, counted by torch.profiler
+    (None where it sees no CUDA kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    return n or None
+
+
+def phase_launches_per_call():
+    """{kernel: device kernels one wrapper call runs} at phase 5's shapes,
+    bf16: flash and decode at musicgen's heads, moe_gmm at arctic's C 1
+    (split over d), ssd_scan at mamba2's 3 x 512. Counted before the
+    serve phase: profiler sessions opened after the engine's profiled
+    decode steps have seen no CUDA kernel."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.blocks import DECODE_BLOCK_S
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bf16, ps = torch.bfloat16, DECODE_BLOCK_S
+    q, k, v = (rand((64, 512, 64), bf16, gen) for _ in range(3))
+    n = {"flash_attention": launches_per_call(
+        lambda: flash_attention(q, k, v))}
+    qd = rand((MAX_BATCH, 32, 64), bf16, gen)
+    kc, vc = (rand((MAX_BATCH, MAX_LEN, 32, 64), bf16, gen)
+              for _ in range(2))
+    lengths = torch.full((MAX_BATCH,), 300, dtype=torch.int32, device="cuda")
+    table = torch.arange(MAX_BATCH * MAX_LEN // ps, dtype=torch.int32,
+                         device="cuda").reshape(MAX_BATCH, -1)
+    kp, vp = (t.reshape(-1, ps, 32, 64) for t in (kc, vc))
+    n["decode_attention"] = launches_per_call(
+        lambda: decode_attention(qd, kc, vc, lengths, block_s=ps))
+    n["paged_decode_attention"] = launches_per_call(
+        lambda: paged_decode_attention(qd, kp, vp, table, lengths))
+    w = rand((128, 7168, 4864), bf16, gen)
+    x = rand((128, 1, 7168), bf16, gen)
+    n["moe_gmm"] = launches_per_call(lambda: moe_gmm(x, w))
+    del w
+    args = ssd_inputs(3, 512, 64, 64, 1, 128, bf16, gen)
+    n["ssd_scan"] = launches_per_call(lambda: ssd_scan(*args, chunk=256))
+    phase(3, "kernels", "device kernels one call runs (torch.profiler), at "
+          "phase 5's shapes: " + ", ".join(f"{k} {v}" for k, v in n.items()))
+    return n
 
 
 def gmm_row(launches, counts_by_t, flush, gen):
@@ -922,62 +1037,127 @@ def gmm_split_sweep(counts_by_t, flush, gen, name):
         free_device_memory()
 
 
-def ssd_flops(B, S, nh, hp, ds, chunk):
-    """FLOPs of the dual form, as (C.B scores, the rest): per chunk and
-    head, the scores over the lower triangle (both operands in x's dtype),
-    and their product with dt x, the inter-chunk term and the state update
-    (one operand fp32: dt, the scores or the state)."""
+def ssd_bytes(B, S, nh, hp, ng, ds, elt):
+    """Bytes one ssd_scan call must move: x, dt, A, B and C read once, y
+    and the final state written once."""
+    return (elt * B * S * nh * hp + 4 * B * S * nh + 4 * nh
+            + 2 * elt * B * S * ng * ds + 4 * B * S * nh * hp
+            + 4 * B * nh * hp * ds)
+
+
+def ssd_bound(B, S, nh, hp, ng, ds, chunk, elt):
+    """(ms, by) of one ssd_scan call: ``ssd_bytes``; the C.B scores
+    (operands in x's dtype) once per (b, chunk, group) at the bf16
+    tensor-core rate, the products with an fp32 operand (the scores times
+    dt x, the inter-chunk term, the state update) per head at the TF32
+    tensor-core rate the bf16 kernel runs them at."""
+    tri = chunk * (chunk + 1) // 2
+    nc = S // chunk
+    scores = 2 * nc * B * ng * tri * ds
+    rest = 2 * nc * B * nh * (tri * hp + 2 * chunk * hp * ds)
+    return bound(ssd_bytes(B, S, nh, hp, ng, ds, elt),
+                 (scores, PEAK_BF16_FLOPS), (rest, PEAK_TF32_FLOPS))
+
+
+def ssd_bound_fp32(B, S, nh, hp, ng, ds, chunk, elt):
+    """The bound of a kernel that runs the fp32-operand products on CUDA
+    cores, as PERF.md counted it before the tensor-core kernel: the
+    scores once per head at the bf16 rate, the rest at the fp32 rate."""
     tri = chunk * (chunk + 1) // 2
     n = 2 * (S // chunk) * B * nh
-    return n * tri * ds, n * (tri * hp + 2 * chunk * hp * ds)
+    return bound(ssd_bytes(B, S, nh, hp, ng, ds, elt),
+                 (n * tri * ds, PEAK_BF16_FLOPS),
+                 (n * (tri * hp + 2 * chunk * hp * ds), PEAK_FP32_FLOPS))
 
 
-def ssd_row(launches, flush, gen):
-    """ssd_scan at mamba2's largest prefill group of phase 4 (3 x 512)."""
+def ssd_row(launches, flush, gen, name):
+    """ssd_scan at each mamba2 prefill group shape of phase 4 (1 to 3
+    prompts of 128, 256 or 512 tokens; the row is 3 x 512), with every hp
+    tile of the bf16 grid timed beside the one ``hp_tile`` picks."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.ref import ssd_scan_ref
-    from repro_torch.kernels.ssd_scan import ssd_scan
-    B, S, nh, hp, ng, ds, chunk = 3, 512, 64, 64, 1, 128, 256
-    args = ssd_inputs(B, S, nh, hp, ng, ds, torch.bfloat16, gen)
-    nbytes = (2 * B * S * nh * hp + 4 * B * S * nh + 4 * nh
-              + 2 * 2 * B * S * ng * ds + 4 * B * S * nh * hp
-              + 4 * B * nh * hp * ds)
-    scores, rest = ssd_flops(B, S, nh, hp, ds, chunk)
-    b_ms, b_by = bound(nbytes, (scores, PEAK_BF16_FLOPS),
-                       (rest, PEAK_FP32_FLOPS))
-    y, st = ssd_scan(*args, chunk=chunk)
-    y_ref, st_ref = ssd_scan_ref(*args, chunk=chunk)
-    max_err(st, st_ref, *SSD_TOL["bfloat16"])
-    return dict(
-        name="ssd_scan", route="cuda",
-        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
-        replaces="src/repro/kernels/ssd_scan.py:85",
-        launches=launches["ssd_scan"],
-        max_abs_err=max_err(y, y_ref, *SSD_TOL["bfloat16"]),
-        ms=time_ms(lambda: ssd_scan(*args, chunk=chunk), flush),
-        plain_ms=time_ms(lambda: ssd_scan_ref(*args, chunk=chunk), flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"mamba2 B={B} S={S} nh={nh} hp={hp} ng={ng} ds={ds} chunk="
-              f"{chunk} bf16 in, fp32 out; bound: the C.B scores (bf16 "
-              "operands) at the bf16 tensor-core rate, the products with an "
-              "fp32 operand at the fp32 rate; library n/a: no single "
-              "PyTorch call computes a chunked SSD scan")
+    cfg = get_config("mamba2-1.3b")
+    nh, hp, ng, ds = (cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
+                      cfg.d_state)
+    extra, row = [], None
+    for B in range(1, -(-MAX_BATCH // len(PLENS)) + 1):
+        for S in PLENS:
+            chunk = min(cfg.ssm_chunk, S)
+            args = ssd_inputs(B, S, nh, hp, ng, ds, torch.bfloat16, gen)
+            b_ms, b_by = ssd_bound(B, S, nh, hp, ng, ds, chunk, 2)
+            o_ms, _ = ssd_bound_fp32(B, S, nh, hp, ng, ds, chunk, 2)
+            y, st = ssd.ssd_scan(*args, chunk=chunk)
+            y_ref, st_ref = ssd_scan_ref(*args, chunk=chunk)
+            err = max(max_err(y, y_ref, *SSD_TOL["bfloat16"]),
+                      max_err(st, st_ref, *SSD_TOL["bfloat16"]))
+            ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk), flush)
+            tiles = {}
+            for tile in ssd.HP_TILES:
+                if hp % tile:
+                    continue
+                yt, stt = torch.empty_like(y), torch.empty_like(st)
+                ssd.launch(*args, yt, stt, chunk, tile)
+                max_err(yt, y_ref, *SSD_TOL["bfloat16"])
+                tiles[tile] = time_ms(
+                    lambda: ssd.launch(*args, yt, stt, chunk, tile), flush)
+            pick = ssd.hp_tile(B, nh, hp, torch.bfloat16,
+                               lambda t: ssd._wave(0, t, ds))
+            best = min(tiles, key=tiles.get)
+            phase(5, "times", f"ssd_scan hp-tile sweep mamba2 B={B} S={S} "
+                  f"chunk={chunk}: " + ", ".join(
+                      f"tile {t} {v:.4f} ms ({B * nh * hp // t} blocks, "
+                      f"{ssd._wave(0, t, ds)} a wave)"
+                      for t, v in tiles.items())
+                  + f"; hp_tile picks {pick}, fastest {best} "
+                  f"({tiles[best] / tiles[pick]:.1%} of the pick's time); "
+                  f"{name}")
+            label = (f"mamba2 B={B} S={S} nh={nh} hp={hp} ng={ng} ds={ds} "
+                     f"chunk={chunk} bf16 in, fp32 out")
+            if (B, S) == (3, max(PLENS)):
+                row = dict(
+                    name="ssd_scan", route="cuda",
+                    source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                    replaces="src/repro/kernels/ssd_scan.py:85",
+                    launches=launches["ssd_scan"], max_abs_err=err, ms=ms,
+                    plain_ms=time_ms(
+                        lambda: ssd_scan_ref(*args, chunk=chunk), flush),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                row_label = (f"{label} (bound with the products at the "
+                             f"fp32 rate {o_ms:.4f} ms)")
+            else:
+                extra.append(f"B={B} S={S}: kernel {ms:.4f} ms, bound "
+                             f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of "
+                             f"bound, at the fp32 rate {o_ms:.4f} ms, max "
+                             f"abs err {err:.3e}")
+            del args, y, st, y_ref, st_ref
+    row["shape"] = (f"{row_label}; " + "; ".join(extra) + "; bound: the C.B "
+                    "scores once per group at the bf16 tensor-core rate, "
+                    "the products with an fp32 operand at the TF32 rate; "
+                    "library n/a: no single PyTorch call computes a chunked "
+                    "SSD scan")
+    return row
 
 
-def phase_times(launches, arctic_counts, name):
+def phase_times(launches, arctic_counts, name, per_call):
     gen = torch.Generator(device="cuda").manual_seed(4)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     rows = attention_rows(launches, flush, gen)
     rows.append(gmm_row(launches, arctic_counts, flush, gen))
     free_device_memory()
     gmm_split_sweep(arctic_counts, flush, gen, name)
-    rows.append(ssd_row(launches, flush, gen))
+    rows.append(ssd_row(launches, flush, gen, name))
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        n = per_call[r["name"]]
         phase(5, "times", f"{r['name']} [{r.pop('shape')}]: kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
               f"{r['bound_ms'] / r['ms']:.1%} of bound; launches "
-              f"{r['launches']}; {name}")
+              f"{r['launches']} on the serve paths, "
+              + (f"{n} device kernels per call" if n else "device kernels "
+                 "per call not measured (the profiler saw none)")
+              + f"; {name}")
     return rows
 
 
@@ -994,6 +1174,8 @@ def main():
     phase_build()
     phase_kernels()
     free_device_memory()
+    per_call = phase_launches_per_call()
+    free_device_memory()
     launches, arctic_counts = {}, None
     for arch, layers, smoke, why in PATHS:
         counts, moe_counts_by_t = phase_serve(arch, layers, smoke, why, smi)
@@ -1008,7 +1190,7 @@ def main():
         if arch in ("musicgen-large", "mamba2-1.3b"):
             reference_check(arch)
             free_device_memory()
-    rows = phase_times(launches, arctic_counts, smi)
+    rows = phase_times(launches, arctic_counts, smi, per_call)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -35,11 +35,12 @@ SIGNATURES = {
         "flash_attention_fwd": (_P,) * 4 + (_I,) * 6 + (_P,),
     },
     "decode_attention": {
-        # q, k, v, lengths, o, part, B, H, KVH, hd, S, block_s, dtype, stream
-        "decode_attention_fwd": (_P,) * 6 + (_I,) * 7 + (_P,),
-        # q, kp, vp, table, lengths, o, part, B, H, KVH, hd, ps, n_pt, dtype,
-        # stream
-        "paged_decode_attention_fwd": (_P,) * 7 + (_I,) * 7 + (_P,),
+        # q, k, v, lengths, o, part, count, B, H, KVH, hd, S, block_s,
+        # dtype, stream
+        "decode_attention_fwd": (_P,) * 7 + (_I,) * 7 + (_P,),
+        # q, kp, vp, table, lengths, o, part, count, B, H, KVH, hd, ps, n_pt,
+        # dtype, stream
+        "paged_decode_attention_fwd": (_P,) * 8 + (_I,) * 7 + (_P,),
     },
     "moe_gmm": {
         # x, w, counts, part, out, E, C, d, f, c_tile, vec, splits, dtype,
@@ -47,9 +48,11 @@ SIGNATURES = {
         "moe_gmm_fwd": (_P,) * 5 + (_I,) * 8 + (_P,),
     },
     "ssd_scan": {
-        # x, dt, A, Bg, Cg, y, state, B, S, nh, hp, ng, ds, chunk, dtype,
-        # stream
-        "ssd_scan_fwd": (_P,) * 7 + (_I,) * 8 + (_P,),
+        # x, dt, A, Bg, Cg, y, state, B, S, nh, hp, ng, ds, chunk, hp_tile,
+        # dtype, stream
+        "ssd_scan_fwd": (_P,) * 7 + (_I,) * 9 + (_P,),
+        # hp_tile, ds, out blocks per SM
+        "ssd_scan_occupancy": (_I, _I, _P),
     },
 }
 

@@ -1,9 +1,11 @@
 """One-token decode attention over a contiguous KV cache, on the card.
 
 Replaces ``repro.kernels.decode_attention.decode_attention`` (the Pallas
-``_decode_kernel``) with ``csrc/decode_attention.cu``: a split-KV pass and
-a merge pass. The plain version is ``kernels.ref.decode_attention_ref``;
-``kernels.ops.decode`` picks between the two by the tensor's device.
+``_decode_kernel``) with ``csrc/decode_attention.cu``: one launch of split
+blocks along the sequence, the last split of each (row, KV head) merging
+the row's splits. The plain version is
+``kernels.ref.decode_attention_ref``; ``kernels.ops.decode`` picks between
+the two by the tensor's device.
 """
 from __future__ import annotations
 
@@ -12,7 +14,44 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
 
-MAX_GROUP = 8   # query heads per KV head the kernel holds (MAXG in csrc)
+MAX_GROUP = 8   # query heads per KV head the kernel holds
+
+# (device, stream) -> (counters, partials): see ``scratch``
+_SCRATCH: dict = {}
+
+
+def scratch_sizes(B: int, KVH: int, n_split: int, G: int,
+                  hd: int) -> tuple[int, int]:
+    """(counters, fp32 partial floats) one call needs: a counter per (row,
+    KV head), and an (m, l, acc[hd]) partial per split and query head."""
+    return B * KVH, B * KVH * n_split * G * (hd + 2)
+
+
+def scratch(device, stream: int, n_count: int, n_part: int):
+    """The persistent (counters int32, partials fp32) of one device and
+    stream, at least ``n_count`` and ``n_part`` long.
+
+    Allocated once and grown to the next power of two when a call needs
+    more, on the stream that uses it. The kernel leaves every counter at
+    zero (the merging block resets its own), so the next launch on the
+    same stream, which runs after it, finds them zero; a partial is read
+    only by a later block of the launch that wrote it. Each stream has its
+    own pair, so launches that may overlap never share a counter.
+    """
+    key = (str(device), stream)
+    have = _SCRATCH.get(key)
+    if have is None or have[0].numel() < n_count or have[1].numel() < n_part:
+        old = (0, 0) if have is None else (have[0].numel(), have[1].numel())
+        have = (torch.zeros(_pow2(max(n_count, old[0])), dtype=torch.int32,
+                            device=device),
+                torch.empty(_pow2(max(n_part, old[1])), dtype=torch.float32,
+                            device=device))
+        _SCRATCH[key] = have
+    return have
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
 
 
 def check_decode_args(q, k, v, lengths, what: str):
@@ -61,14 +100,15 @@ def decode_attention(q, k_cache, v_cache, lengths, *, block_s: int = 512):
     o = torch.empty_like(q)
     if B == 0:
         return o
-    n_split = -(-S // block_s)
-    part = torch.empty(B * KVH * n_split * G * (hd + 2), dtype=torch.float32,
-                       device=q.device)
+    stream = build.stream_of(q)
+    count, part = scratch(q.device, stream.value,
+                          *scratch_sizes(B, KVH, -(-S // block_s), G, hd))
     lib = build.library("decode_attention")
     build.check(lib.decode_attention_fwd(
         build.ptr(q), build.ptr(k_cache), build.ptr(v_cache),
-        build.ptr(lengths), build.ptr(o), build.ptr(part), B, H, KVH, hd, S,
-        block_s, DTYPES[q.dtype], build.stream_of(q)), "decode_attention")
+        build.ptr(lengths), build.ptr(o), build.ptr(part), build.ptr(count),
+        B, H, KVH, hd, S, block_s, DTYPES[q.dtype], stream),
+        "decode_attention")
     decode_attention.launches += 1
     return o
 

@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import check_decode_args
+from repro_torch.kernels.decode_attention import (
+    check_decode_args, scratch, scratch_sizes)
 from repro_torch.kernels.flash_attention import DTYPES
 
 
@@ -39,14 +40,15 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths):
     o = torch.empty_like(q)
     if B == 0:
         return o
-    part = torch.empty(B * KVH * n_pt * G * (hd + 2), dtype=torch.float32,
-                       device=q.device)
+    stream = build.stream_of(q)
+    count, part = scratch(q.device, stream.value,
+                          *scratch_sizes(B, KVH, n_pt, G, hd))
     lib = build.library("decode_attention")
     build.check(lib.paged_decode_attention_fwd(
         build.ptr(q), build.ptr(k_pages), build.ptr(v_pages),
         build.ptr(page_table), build.ptr(lengths), build.ptr(o),
-        build.ptr(part), B, H, KVH, hd, ps, n_pt, DTYPES[q.dtype],
-        build.stream_of(q)), "paged_decode_attention")
+        build.ptr(part), build.ptr(count), B, H, KVH, hd, ps, n_pt,
+        DTYPES[q.dtype], stream), "paged_decode_attention")
     paged_decode_attention.launches += 1
     return o
 

@@ -6,6 +6,9 @@ picks between the two by the tensor's device.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from repro_torch.kernels import build
@@ -14,6 +17,38 @@ from repro_torch.kernels.flash_attention import DTYPES
 HEAD_DIMS = (16, 64)      # hp the kernel is built for
 STATE_DIMS = (16, 128)    # ds the kernel is built for
 MAX_CHUNK = 256           # MAXQ in csrc
+HP_TILES = (16, 32, 64)   # hp columns a bf16 block may own
+
+
+def hp_tile(B: int, nh: int, hp: int, dtype, wave) -> int:
+    """Columns of hp one bf16 block owns; the grid is (hp / tile, nh, B).
+
+    The narrowest tile whose grid fits in one wave of resident blocks,
+    ``wave(tile)`` (SMs x blocks an SM holds of that tile), else the
+    widest: narrower tiles put more blocks on the card, a second wave
+    costs more than they gain, and every block recomputes its group's
+    C.B scores. chip_smoke.py's phase-5 sweep times each tile at every
+    mamba2 prefill group shape (PERF.md): at 3 prompts the tile of 64 (192
+    blocks) is fastest, at 2 the tile of 32, at 1 the tiles of 16 and 32
+    tie. The fp32 kernel takes all of hp.
+    """
+    if dtype != torch.bfloat16:
+        return hp
+    tiles = [t for t in HP_TILES if hp % t == 0]
+    return next((t for t in tiles if B * nh * (hp // t) <= wave(t)),
+                tiles[-1])
+
+
+@functools.cache
+def _wave(device_index: int, tile: int, ds: int) -> int:
+    """Blocks of the bf16 instance (tile, ds) the card runs at once."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(build.library("ssd_scan").ssd_scan_occupancy(
+            tile, ds, ctypes.addressof(blocks)), "ssd_scan occupancy")
+        sms = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+    return sms * blocks.value
 
 
 def ssd_scan(x, dt, A, Bg, Cg, *, chunk: int):
@@ -56,11 +91,21 @@ def ssd_scan(x, dt, A, Bg, Cg, *, chunk: int):
     state = torch.empty((B, nh, hp, ds), dtype=torch.float32, device=x.device)
     if B == 0 or nh == 0:
         return y, state
+    tile = hp_tile(B, nh, hp, x.dtype,
+                   lambda t: _wave(x.device.index, t, ds))
+    return launch(x, dt, A, Bg, Cg, y, state, chunk, tile)
+
+
+def launch(x, dt, A, Bg, Cg, y, state, chunk: int, tile: int):
+    """Launch on checked arguments: ``ssd_scan`` passes ``hp_tile``; a
+    timing sweep may pass another tile of ``HP_TILES`` dividing hp."""
+    B, S, nh, hp = x.shape
+    ng, ds = Bg.shape[2:]
     lib = build.library("ssd_scan")
     build.check(lib.ssd_scan_fwd(
         build.ptr(x), build.ptr(dt), build.ptr(A), build.ptr(Bg),
         build.ptr(Cg), build.ptr(y), build.ptr(state), B, S, nh, hp, ng, ds,
-        chunk, DTYPES[x.dtype], build.stream_of(x)), "ssd_scan")
+        chunk, tile, DTYPES[x.dtype], build.stream_of(x)), "ssd_scan")
     ssd_scan.launches += 1
     return y, state
 

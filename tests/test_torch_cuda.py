@@ -91,6 +91,100 @@ def test_decode_kernels_match_plain_and_each_other(card, B, H, KVH, hd, S,
            dtype)
 
 
+def _pools(card, k, v, ps):
+    """Pages of ``ps`` positions holding k and v at shuffled places, page 0
+    NaN; returns (k pool, v pool, (B, S / ps) int32 table)."""
+    B, S, KVH, hd = k.shape
+    n_pt = S // ps
+    table = (1 + torch.randperm(B * n_pt, generator=card, device="cuda")
+             ).reshape(B, n_pt).to(torch.int32)
+    pools = []
+    for t in (k, v):
+        pool = torch.full((1 + B * n_pt, ps, KVH, hd), float("nan"),
+                          dtype=t.dtype, device="cuda")
+        pool[table.reshape(-1).long()] = t.reshape(B * n_pt, ps, KVH, hd)
+        pools.append(pool)
+    return pools[0], pools[1], table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KVH,hd", [(32, 32, 64), (56, 8, 128),
+                                      (16, 8, 16), (28, 4, 32),
+                                      (8, 1, 128), (12, 3, 64)])
+def test_decode_edges_repeat_bitwise(card, H, KVH, hd, dtype):
+    """G of 1, 7, 2, 7, 8 and 4 over every hd: rows of length 0, 1, at
+    cap, at a split's end and ending mid-split, with splits of 128 as the
+    engine runs them. Two calls give equal bits, paged == contiguous."""
+    B, S, ps = 6, 384, 128
+    q = torch.randn(B, H, hd, generator=card, device="cuda").to(dtype)
+    k, v = (torch.randn(B, S, KVH, hd, generator=card,
+                        device="cuda").to(dtype) for _ in range(2))
+    lengths = torch.tensor([0, 1, S, 128, 200, 383], dtype=torch.int32,
+                           device="cuda")
+    out = ops.decode(q, k, v, lengths, block_s=ps)
+    _close(out, decode_attention_ref(q, k, v, lengths), dtype)
+    assert bool((out[0] == 0).all())
+    assert torch.equal(ops.decode(q, k, v, lengths, block_s=ps), out)
+    kp, vp, table = _pools(card, k, v, ps)
+    before = ops.launch_counts()["paged_decode_attention"]
+    paged = ops.paged_decode(q, kp, vp, table, lengths)
+    assert ops.launch_counts()["paged_decode_attention"] == before + 1
+    assert torch.equal(paged, out)
+    assert torch.equal(ops.paged_decode(q, kp, vp, table, lengths), paged)
+
+
+def test_decode_scratch_is_per_stream_and_left_zero(card):
+    """Each stream gets its own counters, and a launch leaves them zero
+    (the merging block resets its own), so a later launch is right."""
+    from repro_torch.kernels.decode_attention import _SCRATCH
+    B, H, KVH, hd, S = 4, 8, 2, 64, 512
+    q = torch.randn(B, H, hd, generator=card, device="cuda")
+    k, v = (torch.randn(B, S, KVH, hd, generator=card, device="cuda")
+            for _ in range(2))
+    lengths = torch.tensor([512, 300, 129, 77], dtype=torch.int32,
+                           device="cuda")
+    want = decode_attention_ref(q, k, v, lengths)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out_side = ops.decode(q, k, v, lengths, block_s=128)
+    out = ops.decode(q, k, v, lengths, block_s=128)
+    torch.cuda.synchronize()
+    _close(out, want, torch.float32)
+    assert torch.equal(out_side, out)
+    keys = [key for key in _SCRATCH if key[0] == str(q.device)]
+    assert len(keys) >= 2
+    for key in keys:
+        assert int(_SCRATCH[key][0].abs().sum()) == 0
+
+
+def _offset(t):
+    """A contiguous copy of ``t`` one element past a 16-byte boundary, so
+    the kernels take their element-wise loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_unaligned_inputs(card, dtype):
+    """q, k and v off 16-byte alignment: the same bits as aligned copies,
+    contiguous and paged."""
+    B, H, KVH, hd, S, ps = 3, 16, 4, 64, 256, 128
+    q = torch.randn(B, H, hd, generator=card, device="cuda").to(dtype)
+    k, v = (torch.randn(B, S, KVH, hd, generator=card,
+                        device="cuda").to(dtype) for _ in range(2))
+    lengths = torch.tensor([256, 0, 150], dtype=torch.int32, device="cuda")
+    out = ops.decode(q, k, v, lengths, block_s=ps)
+    assert torch.equal(ops.decode(_offset(q), _offset(k), _offset(v),
+                                  lengths, block_s=ps), out)
+    kp, vp, table = _pools(card, k, v, ps)
+    assert torch.equal(ops.paged_decode(_offset(q), _offset(kp),
+                                        _offset(vp), table, lengths), out)
+
+
 # tests/test_kernels.py:98-99 (gmm) and :81-82 (ssd): fp32 sums reorder;
 # bf16 outputs round (gmm), bf16 inputs round before fp32 math (ssd)
 GMM_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (8e-2, 4e-1)}
@@ -168,7 +262,11 @@ def test_gmm_split_over_d_matches_plain_and_repeats(card, dtype):
                           (1, 96, 4, 16, 2, 128, 48),
                           (2, 48, 8, 64, 1, 16, 12),
                           (2, 512, 8, 64, 2, 128, 256),
-                          (3, 128, 8, 64, 1, 128, 128)])
+                          (3, 128, 8, 64, 1, 128, 128),
+                          # S < 64; chunk 12 and 48 at ds 128; ng 2
+                          (2, 40, 8, 64, 1, 128, 40),
+                          (1, 48, 4, 64, 2, 128, 12),
+                          (2, 96, 8, 64, 2, 128, 48)])
 def test_ssd_kernel_matches_plain(card, B, S, nh, hp, ng, ds, chunk, dtype):
     """y and the final state, over several chunks and ragged query
     tiles, with grouped B/C."""
@@ -185,6 +283,66 @@ def test_ssd_kernel_matches_plain(card, B, S, nh, hp, ng, ds, chunk, dtype):
     rtol, atol = SSD_TOL[dtype]
     torch.testing.assert_close(y, y_ref, rtol=rtol, atol=atol)
     torch.testing.assert_close(state, state_ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_ssd_every_hp_tile_matches_plain_and_repeats(card, tile, dtype):
+    """Each hp tile the bf16 grid may take (the fp32 kernel ignores it)
+    at mamba2's widths, two chunks: within tolerance, and two calls give
+    equal bits."""
+    from repro_torch.kernels.ssd_scan import launch
+    B, S, nh, hp, ng, ds, chunk = 2, 512, 8, 64, 1, 128, 256
+    x = (0.5 * torch.randn(B, S, nh, hp, generator=card,
+                           device="cuda")).to(dtype)
+    dt = 0.01 + 0.29 * torch.rand(B, S, nh, generator=card, device="cuda")
+    A = -(0.5 + 1.5 * torch.rand(nh, generator=card, device="cuda"))
+    Bg, Cg = ((0.3 * torch.randn(B, S, ng, ds, generator=card,
+                                 device="cuda")).to(dtype) for _ in range(2))
+
+    def run():
+        y = torch.empty(B, S, nh, hp, device="cuda")
+        st = torch.empty(B, nh, hp, ds, device="cuda")
+        return launch(x, dt, A, Bg, Cg, y, st, chunk, tile)
+
+    y, state = run()
+    y_ref, state_ref = ssd_scan_ref(x, dt, A, Bg, Cg, chunk=chunk)
+    rtol, atol = SSD_TOL[dtype]
+    torch.testing.assert_close(y, y_ref, rtol=rtol, atol=atol)
+    torch.testing.assert_close(state, state_ref, rtol=rtol, atol=atol)
+    y2, state2 = run()
+    assert torch.equal(y2, y) and torch.equal(state2, state)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_unaligned_inputs(card, dtype):
+    """x, B and C off 16-byte alignment: the same bits as aligned copies."""
+    B, S, nh, hp, ng, ds, chunk = 2, 128, 8, 64, 1, 128, 64
+    x = (0.5 * torch.randn(B, S, nh, hp, generator=card,
+                           device="cuda")).to(dtype)
+    dt = 0.01 + 0.29 * torch.rand(B, S, nh, generator=card, device="cuda")
+    A = -(0.5 + 1.5 * torch.rand(nh, generator=card, device="cuda"))
+    Bg, Cg = ((0.3 * torch.randn(B, S, ng, ds, generator=card,
+                                 device="cuda")).to(dtype) for _ in range(2))
+    y, state = ops.ssd(x, dt, A, Bg, Cg, chunk=chunk)
+    y2, state2 = ops.ssd(_offset(x), dt, A, _offset(Bg), _offset(Cg),
+                         chunk=chunk)
+    assert torch.equal(y2, y) and torch.equal(state2, state)
+
+
+def test_ssd_hp_tile_fits_one_wave(card):
+    """The occupancy the bf16 grid is sized by: each tile holds at least a
+    block per SM, and the tile ``ssd_scan`` takes at mamba2's prefill
+    groups (nh 64, hp 64, ds 128) of 1 to 3 prompts fits in one wave."""
+    from repro_torch.kernels.ssd_scan import HP_TILES, _wave, hp_tile
+    idx = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(idx).multi_processor_count
+    for tile in HP_TILES:
+        assert _wave(idx, tile, 128) >= sms
+    for B in (1, 2, 3):
+        tile = hp_tile(B, 64, 64, torch.bfloat16,
+                       lambda t: _wave(idx, t, 128))
+        assert B * 64 * (64 // tile) <= _wave(idx, tile, 128)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "arctic-480b"])

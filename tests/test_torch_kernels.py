@@ -275,6 +275,63 @@ def test_gmm_plan_splits_only_small_c():
     assert (p.c_tile, p.vec, p.splits) == (1, False, 1)
 
 
+def test_decode_scratch_sizes():
+    """A counter per (row, KV head); an (m, l, acc[hd]) partial per split
+    and query head: musicgen's decode step (8 rows, 32 KV heads, 8 splits
+    of 128 over a 1024 cache) and arctic's (8 KV heads of 7 queries)."""
+    from repro_torch.kernels.decode_attention import scratch_sizes
+    assert scratch_sizes(8, 32, 8, 1, 64) == (256, 8 * 32 * 8 * 66)
+    assert scratch_sizes(8, 8, 8, 7, 128) == (64, 8 * 8 * 8 * 7 * 130)
+    assert scratch_sizes(1, 1, 1, 1, 16) == (1, 18)
+
+
+def test_decode_scratch_is_kept_per_device_and_stream():
+    """One (counters, partials) pair per device and stream: zeroed int32
+    counters and fp32 partials, rounded up to a power of two, reused while
+    big enough, replaced by a larger pair when a call needs more, and never
+    shared between streams."""
+    from repro_torch.kernels.decode_attention import _SCRATCH, scratch
+    keys = [("cpu", -1), ("cpu", -2)]
+    try:
+        count, part = scratch("cpu", -1, 10, 100)
+        assert (count.numel(), part.numel()) == (16, 128)
+        assert count.dtype == torch.int32 and part.dtype == torch.float32
+        assert int(count.abs().sum()) == 0
+        again = scratch("cpu", -1, 16, 50)
+        assert again[0] is count and again[1] is part
+        grown = scratch("cpu", -1, 17, 100)
+        assert (grown[0].numel(), grown[1].numel()) == (32, 128)
+        assert int(grown[0].abs().sum()) == 0
+        other = scratch("cpu", -2, 1, 1)
+        assert other[0] is not grown[0] and other[0].numel() == 1
+        assert scratch("cpu", -1, 1, 1)[0] is grown[0]
+    finally:
+        for key in keys:
+            _SCRATCH.pop(key, None)
+
+
+def test_ssd_hp_tile_plan():
+    """The bf16 grid takes the narrowest hp tile whose (hp / tile, nh, B)
+    grid fits in one wave of resident blocks, else the widest: with an
+    H100's 132 SMs holding 3, 2 and 2 blocks of tiles 16, 32 and 64 at ds
+    128, mamba2's prefill groups (nh 64, hp 64) of 1, 2 and 3 prompts take
+    16, 32 and 64 (chip_smoke.py's phase-5 sweep). hp 16 is one tile; fp32
+    takes all of hp."""
+    from repro_torch.kernels.ssd_scan import HEAD_DIMS, HP_TILES, hp_tile
+    wave = {16: 3 * 132, 32: 2 * 132, 64: 2 * 132}.get
+    bf16 = torch.bfloat16
+    assert [hp_tile(B, 64, 64, bf16, wave) for B in (1, 2, 3, 8)] == [
+        16, 32, 64, 64]
+    assert hp_tile(1, 4, 64, bf16, wave) == 16
+    assert hp_tile(3, 64, 16, bf16, wave) == 16
+    assert [hp_tile(3, 64, hp, torch.float32, wave) for hp in HEAD_DIMS] == [
+        16, 64]
+    for B in range(1, 9):
+        for hp in HEAD_DIMS:
+            tile = hp_tile(B, 64, hp, bf16, wave)
+            assert tile in HP_TILES and hp % tile == 0
+
+
 def test_ssd_plain_rejects_a_broken_chunk():
     x = torch.zeros(1, 20, 2, 4)
     bc = torch.zeros(1, 20, 1, 4)
