@@ -8,26 +8,31 @@ without its final line:
 1. device: the card's name and power limit; TF32 off for matmul and cuDNN.
 2. build: nvcc builds the kernels from ``src/repro_torch/kernels/csrc``.
 3. kernels: each kernel against its plain PyTorch version on the card,
-   bf16 and fp32: flash at musicgen-large and qwen2-7b widths (ragged
-   lengths); decode at G 1, 2, 7 and 8 over every head dim (musicgen,
-   qwen2 and arctic heads among them), each with a row of length 0, one
+   bf16 and fp32: flash at musicgen-large, qwen2-7b and kimi-k2 (hd 112)
+   widths (ragged lengths); decode at G 1, 2, 7 and 8 over the head dims
+   and G 1, 7 and 8 at hd 112 (musicgen, qwen2, arctic and kimi-k2 heads
+   among them), each with a row of length 0, one
    at cap and rows ending mid-split, shuffled pages, paged == contiguous
-   bit for bit and two calls of each equal bit for bit; moe_gmm at the C
+   bit for bit and two calls of each equal bit for bit; decode and paged
+   decode at the dsp fleet's shape (musicgen's heads, page size 8, a
+   48-position cache, table tails on the null page); moe_gmm at the C
    of every arctic-480b and jamba-smoke prefill group and decode step
    (every instance: C tile, 16-byte or element-wise loads, split over d
    or not), ssd_scan at every mamba2-1.3b and jamba-smoke prefill group
    shape, grouped, and at each (hp, ds) instance; then the device
    kernels one call of each wrapper runs at phase 5's shapes
-   (torch.profiler). After arctic's serve run, moe_gmm with the filled
-   counts of a decode step and of the largest prefill group, from
-   ``route`` + ``dispatch`` on the path's weights (rows past a count must
-   be exact zero).
-4. serve: four paths, one model resident at a time (weights from a
+   (torch.profiler). After arctic's and kimi-k2's serve runs, moe_gmm
+   with the filled counts of a decode step and of the largest prefill
+   group, from ``route`` + ``dispatch`` on the path's weights (rows past
+   a count must be exact zero).
+4. serve: five paths, one model resident at a time (weights from a
    seeded ``torch.Generator``): musicgen-large at full width and depth,
    mamba2-1.3b at full width and depth, arctic-480b at full width cut to
-   2 of its 35 layers (its 128 experts take 26.8 GB a layer), and
-   jamba-1.5-large at its smoke config (a wiring check: full width does
-   not fit one card). Each serves 16 requests through ``Engine.run``,
+   2 of its 35 layers (its 128 experts take 26.8 GB a layer), kimi-k2 at
+   published widths cut to 1 of its 61 layers (hd 112; its 384 experts
+   take 33.8 GB a layer), and jamba-1.5-large at its smoke config (a
+   wiring check: full width does not fit one card). Each serves 16
+   requests through ``Engine.run``,
    contiguous and then paged; tokens and finish order must agree, every
    page must come back, and the launch counters, set to 0 just before
    each run and read just after, must show that every prefill and decode
@@ -36,14 +41,24 @@ without its final line:
    with 16-byte loads. A 2-layer cut of musicgen
    and of mamba2 at full width in fp32 is held against the CPU's plain
    path.
+dsp. the DSP control plane on musicgen-large at full width and depth
+   (``benchmarks/torch_serve_fleet.py``, max_batch 8, max_len 48): a
+   ``ServeDriver`` on one Montage DAG (paged), equal to its
+   ``EmulatedEngine`` twin, then the mix-1/2/4 fleet, 1 workflow per
+   tenant, paged (page size 8), contiguous (the decode kernel's split at 8
+   positions) and on its twin: every ``FleetStats`` field equal, every
+   request's tokens equal paged and contiguous bit for bit, no
+   over-admission or isolation violation,
+   the page ledgers equal; decode steps, wall seconds, ms per decode step
+   and billed / dedicated node-hours printed.
 5. times: per path, prefill ms per group, decode ms per step, tokens/s,
    peak device memory and the device-busy share of a decode step under
    torch.profiler; then CUDA-event times of each kernel, its plain
    version and, where one PyTorch call computes the same function, that
    call, at the shapes of phase 4, beside the least time the card could
    take, and the device kernels per call from phase 3: flash at
-   musicgen's and arctic's heads (SDPA pinned to its flash backend),
-   decode and paged decode at musicgen's and arctic's heads (SDPA with a
+   musicgen's, arctic's and kimi-k2's heads (SDPA pinned to its flash
+   backend), decode and paged decode at the same three (SDPA with a
    length mask beside), ssd_scan at each mamba2 prefill group shape with
    every hp tile of its bf16 grid, moe_gmm at C 1 and 30 with every row
    filled (beside torch.bmm) and at a real decode step's counts (bound on
@@ -63,6 +78,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -85,6 +101,11 @@ PATHS = (
     ("mamba2-1.3b", None, False, "full width and depth"),
     ("arctic-480b", 2, False, "full width, depth cut to 2 of 35 layers: "
      "each layer's 128 experts are 26.8 GB"),
+    ("kimi-k2-1t-a32b", 1, False, "published widths, depth cut to 1 of 61 "
+     "layers: one layer's 384 experts are 384 x 3 x 7168 x 2048 x 2 B = "
+     "33.8 GB, with the shared expert (88 MB), attention (0.22 GB) and "
+     "embedding + head (4.7 GB) about 38.8 GB; two layers come to about "
+     "72.7 GB before caches and init buffers, more than the card holds"),
     ("jamba-1.5-large-398b", None, True, "smoke config, a wiring check: "
      "full width does not fit one card"),
 )
@@ -221,8 +242,14 @@ def phase_kernels():
         ("qwen2 S=512", 28, 512, 512, 128, True),
         ("qwen2 ragged S=200", 28, 200, 200, 128, True),
         ("qwen2 cross S=128 Sk=320", 28, 128, 320, 128, False),
+        # kimi-k2's hd 112 (7168 / 64): a lone token, a ragged tile, and
+        # the largest prefill group's prompts
+        ("kimi hd=112 S=1", 64, 1, 1, 112, True),
+        ("kimi hd=112 S=40", 2 * 64, 40, 40, 112, True),
+        ("kimi hd=112 S=512", 64, 512, 512, 112, True),
     ]
-    # (label, B, H, KVH, hd, S, lengths): G 1, 2, 7 and 8 over every hd;
+    # (label, B, H, KVH, hd, S, lengths): G 1, 2, 7 and 8 over the hds,
+    # G 1, 7 and 8 at hd 112;
     # each case has a row of length 0, one at cap, and rows ending
     # mid-split
     decode_cases = [
@@ -233,6 +260,11 @@ def phase_kernels():
          [1024, 0, 128, 200, 513, 1, 896, 1000]),
         ("G=2 hd=16", 4, 8, 4, 16, 512, [512, 0, 200, 77]),
         ("G=8 hd=32", 3, 16, 2, 32, 640, [640, 333, 0]),
+        # hd 112: a row is 14 (bf16) or 28 (fp32) lanes of 16-byte loads
+        ("kimi G=8 hd=112", 8, 64, 8, 112, 1024,
+         [1024, 0, 128, 200, 513, 1, 896, 1000]),
+        ("G=7 hd=112", 4, 28, 4, 112, 1024, [0, 300, 1024, 777]),
+        ("G=1 hd=112", 4, 8, 8, 112, 512, [512, 0, 129, 77]),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[str(dtype).split(".")[1]]
@@ -278,8 +310,51 @@ def phase_kernels():
                   f" (tol {tol}); paged == contiguous bitwise at page_size =="
                   f" block_s == {DECODE_BLOCK_S}; two calls of each equal "
                   "bitwise; length-0 rows exact zero")
+        check_fleet_decode(dtype, tol, gen, cpu_gen)
     check_gmm(gen)
     check_ssd(gen)
+
+
+def check_fleet_decode(dtype, tol, gen, cpu_gen):
+    """Decode at the dsp phase's shape: musicgen's heads (H 32, hd 64),
+    8 rows, a 48-position cache in pages of 8 at shuffled places, each
+    row's table past its last page on the NaN null page as the engine's
+    is. Lengths 0, 1, one page, mid-page, the cap, and the cap + 1 that a
+    full row's step passes. Paged and contiguous (block_s 8) against the
+    plain version, equal to each other bit for bit, each repeatable."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention)
+    from repro_torch.kernels.ref import decode_attention_ref
+    B, H, hd, S, ps = 8, 32, 64, 48, 8
+    lens = [0, 1, 8, 13, 33, 47, 48, 49]
+    q = rand((B, H, hd), dtype, gen)
+    kc = rand((B, S, H, hd), dtype, gen)
+    vc = rand((B, S, H, hd), dtype, gen)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kp, table = paged_layout(kc, ps, cpu_gen)
+    vp = torch.full_like(kp, float("nan"))
+    vp[table.reshape(-1).long()] = vc.reshape(-1, ps, H, hd)
+    for b, n in enumerate(lens):
+        table[b, -(-min(n, S) // ps):] = 0
+    ref = decode_attention_ref(q, kc, vc, lengths)
+    out = decode_attention(q, kc, vc, lengths, block_s=ps)
+    paged = paged_decode_attention(q, kp, vp, table, lengths)
+    err = max_err(out, ref, tol)
+    perr = max_err(paged, ref, tol)
+    check(bool((paged[0] == 0).all()), "fleet-shape length-0 row not zero")
+    check(torch.equal(paged, out), f"fleet-shape paged != contiguous "
+          f"bitwise at block_s == page_size == {ps} ({dtype})")
+    check(torch.equal(decode_attention(q, kc, vc, lengths, block_s=ps), out)
+          and torch.equal(paged_decode_attention(q, kp, vp, table, lengths),
+                          paged),
+          f"fleet-shape decode not bitwise repeatable ({dtype})")
+    phase(3, "kernels", f"paged_decode_attention at the dsp fleet's shape (B "
+          f"{B}, H {H}, KVH {H}, hd {hd}, cap {S}, page_size {ps}, tables "
+          f"past each row's last page on the NaN null page, lengths {lens})"
+          f" {dtype}: max abs err {perr:.3e}; decode_attention block_s {ps} "
+          f"{err:.3e} (tol {tol}); paged == contiguous bitwise; two calls of"
+          " each equal bitwise; length-0 row exact zero")
 
 
 def path_capacities(cfg):
@@ -416,26 +491,26 @@ def moe_plans(lm):
     return inst
 
 
-def check_gmm_counts(counts_by_t, gen):
-    """moe_gmm with the filled counts of an arctic decode step and of its
-    largest prefill group (``moe_counts``: route + dispatch on the path's
-    weights), both orientations, on an x that is non-zero in every row:
-    filled rows match the plain version, rows past the count are exact
-    zero."""
-    from repro_torch.configs import get_config
+def check_gmm_counts(cfg, counts_by_t, gen):
+    """moe_gmm with the filled counts of a decode step and of the largest
+    prefill group of an MoE path (``moe_counts``: route + dispatch on the
+    path's weights; arctic: 128 experts, top-2; kimi-k2: 384 experts,
+    top-8, its shared expert a dense MLP beside them), both orientations,
+    on an x that is non-zero in every row: filled rows match the plain
+    version, rows past the count are exact zero."""
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.ref import moe_gmm_ref
     from repro_torch.models.moe import capacity
-    arctic = get_config("arctic-480b")
+    E, dm, fe = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
     steps = (("decode step", MAX_BATCH), ("prefill group", max(counts_by_t)))
     for dtype in (torch.bfloat16, torch.float32):
         rtol, atol = GMM_TOL[str(dtype).split(".")[1]]
-        for d, f in ((7168, 4864), (4864, 7168)):
-            w = rand((128, d, f), torch.float32, gen).mul_(d ** -0.5).to(dtype)
+        for d, f in ((dm, fe), (fe, dm)):
+            w = rand((E, d, f), torch.float32, gen).mul_(d ** -0.5).to(dtype)
             for step, T in steps:
                 counts = counts_by_t[T]
-                C = capacity(T, arctic)
-                x = rand((128, C, d), dtype, gen)
+                C = capacity(T, cfg)
+                x = rand((E, C, d), dtype, gen)
                 out = moe_gmm(x, w, counts)
                 err = max_err(out, moe_gmm_ref(x, w, counts), rtol, atol)
                 empty = (torch.arange(C, device="cuda")[None, :]
@@ -443,9 +518,10 @@ def check_gmm_counts(counts_by_t, gen):
                 check(bool((out[empty] == 0).all()),
                       f"moe_gmm {step}: a row past its count is not zero")
                 live = int((counts > 0).sum())
-                phase(3, "kernels", f"moe_gmm arctic {step} counts (T {T}, C "
-                      f"{C}, {live} of 128 experts filled, {int(counts.sum())}"
-                      f" rows) d {d} -> f {f} {dtype}: max abs err {err:.3e} "
+                phase(3, "kernels", f"moe_gmm {cfg.name} {step} counts (T {T}"
+                      f", C {C}, {live} of {E} experts filled, top-{cfg.top_k},"
+                      f" {int(counts.sum())} rows) d {d} -> f {f} {dtype}: max"
+                      f" abs err {err:.3e} "
                       f"(rtol {rtol}, atol {atol}); {int(empty.sum())} empty "
                       "rows exact zero")
                 del x, out
@@ -738,7 +814,99 @@ def free_device_memory():
     torch.cuda.empty_cache()
 
 
-def attention_rows(launches, flush, gen):
+def phase_dsp(smi):
+    """The DSP control plane (``repro_torch.core``, ``serve.driver``,
+    ``serve.fleet``) driving musicgen-large at its published widths and
+    depth, through ``benchmarks/torch_serve_fleet.py``: a ``ServeDriver``
+    on one Montage DAG (paged engine) against its ``EmulatedEngine`` twin,
+    then the mix-1/2/4 fleet (1 workflow per tenant) paged, contiguous and
+    on its twin, with every request's tokens equal paged and contiguous
+    (phase 3 holds the kernels at this shape against their plain
+    versions). Every launch counter is set to 0 just before each engine
+    run and read just after. Returns the runs' summed launch counts."""
+    import torch_serve_fleet as tsf
+    from repro_torch.kernels import ops
+    from repro_torch.serve.driver import EmulatedEngine
+    t0 = time.perf_counter()
+    lm = tsf.build_lm(ARCH, smoke=False, device="cuda")
+    cfg = lm.cfg
+    check(cfg.n_layers == 48 and cfg.d_model == 2048
+          and cfg.n_codebooks == 4 and lm.dtype == torch.bfloat16,
+          f"dsp: {cfg.name} is not musicgen-large at published widths, bf16")
+    phase("dsp", "serve", f"{cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_codebooks} codebooks, {cfg.dtype}, drawn in "
+          f"{time.perf_counter() - t0:.2f} s; engine max_batch "
+          f"{tsf.REAL_MAX_BATCH}, max_len {tsf.REAL_MAX_LEN}")
+
+    eng = tsf.build_engine(lm, tsf.PAGE_SIZE)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats, times, order = tsf.dag_run(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dag_launches = ops.launch_counts()
+    want = expected_launches(cfg, eng, True)
+    check(dag_launches == want and eng.steps > 0,
+          f"dsp DAG: launches {dag_launches} != {want}")
+    check(not eng.active and len(eng.free) == eng.max_batch
+          and eng.pager.used_pages == 0, "dsp DAG: a slot or page not freed")
+    eng.pager.check_conservation()
+    twin = tsf.dag_run(EmulatedEngine(tsf.REAL_MAX_BATCH,
+                                      max_len=tsf.REAL_MAX_LEN))
+    check((stats, times, order) == twin, "dsp DAG: ServeStats, task (start, "
+          "finish) or completion order differ from the EmulatedEngine twin")
+    phase("dsp", "serve", f"ServeDriver, one Montage DAG on the paged engine: "
+          f"{stats['tasks_completed']} tasks completed in dependency order, "
+          f"{stats['ticks']} ticks, {eng.steps} decode steps, {eng.prefills} "
+          f"prefills in {wall:.3f} s; every slot and page freed; ServeStats "
+          f"and every task's (start, finish) equal the EmulatedEngine twin's;"
+          f" launches {dag_launches}")
+    del eng
+    free_device_memory()
+
+    row = tsf.fleet_row(lm, "1/2/4", **tsf.DEFAULTS)
+    for mode, pre in (("paged", ""), ("contiguous", "contiguous_")):
+        run = SimpleNamespace(prefills=row[pre + "prefills"],
+                              steps=row[pre + "decode_steps"])
+        want = expected_launches(cfg, run, mode == "paged")
+        check(row[pre + "launches"] == want, f"dsp fleet {mode}: launches "
+              f"{row[pre + 'launches']} != expected {want}")
+    check(row["token_mismatches"] == 0 and row["requests"] == row["tasks"],
+          f"dsp fleet: {row['token_mismatches']} of {row['requests']} "
+          f"requests ({row['tasks']} tasks) differ paged vs contiguous")
+    phase("dsp", "fleet", f"mix 1/2/4 (widths {row['widths']}), "
+          f"{row['workflows']} workflows, {row['tasks']} tasks, coordinated: "
+          f"{row['parity_mismatches']} mismatches against the EmulatedEngine "
+          f"twin, {row['paged_vs_contiguous_mismatches']} paged vs "
+          f"contiguous; {row['requests']} requests, {row['tokens_out']} "
+          f"token steps, {row['token_mismatches']} requests with other tokens"
+          f" paged (page 8) than contiguous (block_s 8); "
+          f"{row['over_admissions']} over-admissions, "
+          f"{row['isolation_violations']} isolation violations; engine and "
+          f"pool page ledgers equal, conservation holds (pool "
+          f"{row['pool_pages']} pages, peak {row['peak_pages_used']})")
+    phase("dsp", "fleet", f"decode steps {row['decode_steps']} paged, "
+          f"{row['contiguous_decode_steps']} contiguous, "
+          f"{row['twin_decode_steps']} twin; wall {row['wall_s']:.3f} s paged "
+          f"({row['ms_per_decode_step']:.3f} ms per decode step), "
+          f"{row['contiguous_wall_s']:.3f} s contiguous "
+          f"({row['contiguous_ms_per_decode_step']:.3f} ms); billed "
+          f"{row['billed_node_hours']} node-h against dedicated "
+          f"{row['dedicated_node_hours']} (billed / dedicated "
+          f"{row['billed_vs_dedicated']:.4f}); launches paged "
+          f"{row['launches']}, contiguous {row['contiguous_launches']}; {smi}")
+    total = dict(dag_launches)
+    for counts in (row["launches"], row["contiguous_launches"]):
+        for k, v in counts.items():
+            total[k] += v
+    return total
+
+
+def attention_rows(launches, kimi_launches, flush, gen):
+    """Rows of flash, decode and paged decode at musicgen's heads (arctic's
+    beside them in the shape text), and of the same three at kimi-k2's
+    hd-112 heads (H 64, KVH 8), whose launches are the kimi path's."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.configs import get_config
@@ -753,14 +921,16 @@ def attention_rows(launches, flush, gen):
     rows = []
 
     # flash at the largest prefill group of phase 4's first admit window,
-    # musicgen's (the row) and arctic's hd-128 heads; the library is SDPA
-    # pinned to its flash backend
+    # musicgen's (the row), arctic's hd-128 and kimi-k2's hd-112 heads (a
+    # row of its own); the library is SDPA pinned to its flash backend
     first = [PLENS[i % len(PLENS)] for i in range(MAX_BATCH)]
     S = max(first)
     arctic = get_config("arctic-480b")
+    kimi = get_config("kimi-k2-1t-a32b")
     shapes = []
     for label, heads, hdim in (("musicgen", H, hd),
-                               ("arctic", arctic.n_heads, arctic.head_dim)):
+                               ("arctic", arctic.n_heads, arctic.head_dim),
+                               ("kimi-k2", kimi.n_heads, kimi.head_dim)):
         BH = first.count(S) * heads
         q, k, v = (rand((BH, S, hdim), dtype, gen) for _ in range(3))
         pairs = sum(min(i + 1, S) for i in range(S))
@@ -776,9 +946,9 @@ def attention_rows(launches, flush, gen):
             label=f"{label} BH={BH} S={S} hd={hdim} bf16 causal", err=err,
             ms=ms, lib=lib, b_ms=b_ms, b_by=b_by,
             plain=(time_ms(lambda: flash_attention_ref(q, k, v), flush)
-                   if label == "musicgen" else None)))
+                   if label != "arctic" else None)))
         del q, k, v
-    mg, ar = shapes
+    mg, ar, km = shapes
     rows.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -791,6 +961,16 @@ def attention_rows(launches, flush, gen):
               f"({ar['b_by']}), max abs err {ar['err']:.3e}; library: "
               "scaled_dot_product_attention under sdpa_kernel("
               "SDPBackend.FLASH_ATTENTION)"))
+    rows.append(dict(
+        name="flash_attention hd112", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:98",
+        launches=kimi_launches["flash_attention"], max_abs_err=km["err"],
+        ms=km["ms"], plain_ms=km["plain"], bound_ms=km["b_ms"],
+        bound_by=km["b_by"], library_ms=km["lib"],
+        shape=f"{km['label']} (kimi-k2's heads; launches: the kimi path's); "
+              "library: scaled_dot_product_attention under sdpa_kernel("
+              "SDPBackend.FLASH_ATTENTION)"))
 
     # decode at phase 4's first wave, half way through its new tokens:
     # musicgen's heads (the rows) and arctic's GQA heads beside them
@@ -798,8 +978,10 @@ def attention_rows(launches, flush, gen):
               for label, heads, kvh, hdim in (
                   ("musicgen", H, KVH, hd),
                   ("arctic", arctic.n_heads, arctic.n_kv_heads,
-                   arctic.head_dim))]
-    mg, ar = shapes
+                   arctic.head_dim),
+                  ("kimi-k2", kimi.n_heads, kimi.n_kv_heads,
+                   kimi.head_dim))]
+    mg, ar, km = shapes
     for name, replaces, lib in (
             ("decode_attention", "decode_attention.py:83", "lib"),
             ("paged_decode_attention", "paged_decode_attention.py:90",
@@ -822,6 +1004,21 @@ def attention_rows(launches, flush, gen):
                   f"abs err {ar[pre + 'err']:.3e}; "
                   + ("library: scaled_dot_product_attention with a length "
                      "mask (enable_gqa at G > 1)" if lib else
+                     f"page_size={DECODE_BLOCK_S}, shuffled pages; library "
+                     "n/a: no single PyTorch call attends through a page "
+                     "table")))
+        rows.append(dict(
+            name=f"{name} hd112", route="cuda",
+            source="src/repro_torch/kernels/csrc/decode_attention.cu",
+            replaces=f"src/repro/kernels/{replaces}",
+            launches=kimi_launches[name], max_abs_err=km[pre + "err"],
+            ms=km[pre + "ms"], plain_ms=km[pre + "plain"],
+            bound_ms=km[pre + "b_ms"], bound_by=km[pre + "b_by"],
+            library_ms=km["lib"] if lib else None,
+            shape=f"{km['label']} (kimi-k2's heads, G 8; launches: the kimi "
+                  "path's); "
+                  + ("library: scaled_dot_product_attention with a length "
+                     "mask and enable_gqa" if lib else
                      f"page_size={DECODE_BLOCK_S}, shuffled pages; library "
                      "n/a: no single PyTorch call attends through a page "
                      "table")))
@@ -1139,17 +1336,17 @@ def ssd_row(launches, flush, gen, name):
     return row
 
 
-def phase_times(launches, arctic_counts, name, per_call):
+def phase_times(launches, kimi_launches, arctic_counts, name, per_call):
     gen = torch.Generator(device="cuda").manual_seed(4)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-    rows = attention_rows(launches, flush, gen)
+    rows = attention_rows(launches, kimi_launches, flush, gen)
     rows.append(gmm_row(launches, arctic_counts, flush, gen))
     free_device_memory()
     gmm_split_sweep(arctic_counts, flush, gen, name)
     rows.append(ssd_row(launches, flush, gen, name))
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        n = per_call[r["name"]]
+        n = per_call[r["name"].split()[0]]
         phase(5, "times", f"{r['name']} [{r.pop('shape')}]: kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
@@ -1170,27 +1367,33 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "benchmarks"))
     name, smi = phase_device()
     phase_build()
     phase_kernels()
     free_device_memory()
     per_call = phase_launches_per_call()
     free_device_memory()
-    launches, arctic_counts = {}, None
+    launches, by_path, moe_counts_by_arch = {}, {}, {}
     for arch, layers, smoke, why in PATHS:
         counts, moe_counts_by_t = phase_serve(arch, layers, smoke, why, smi)
+        by_path[arch] = counts
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         free_device_memory()
-        if arch == "arctic-480b":
-            arctic_counts = moe_counts_by_t
-            check_gmm_counts(arctic_counts,
+        if moe_counts_by_t is not None:
+            moe_counts_by_arch[arch] = moe_counts_by_t
+            check_gmm_counts(path_config(arch, layers, smoke), moe_counts_by_t,
                              torch.Generator(device="cuda").manual_seed(6))
             free_device_memory()
         if arch in ("musicgen-large", "mamba2-1.3b"):
             reference_check(arch)
             free_device_memory()
-    rows = phase_times(launches, arctic_counts, smi, per_call)
+    for k, v in phase_dsp(smi).items():
+        launches[k] += v
+    free_device_memory()
+    rows = phase_times(launches, by_path["kimi-k2-1t-a32b"],
+                       moe_counts_by_arch["arctic-480b"], smi, per_call)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

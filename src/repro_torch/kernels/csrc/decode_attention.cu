@@ -5,7 +5,7 @@
 // (_decode_kernel), and src/repro/kernels/paged_decode_attention.py,
 // paged_decode_attention (_paged_decode_kernel). Same contract: q (B, H,
 // hd) grouped per KV head (query head h reads KV head h / G, G <= 8, KV is
-// never repeated); hd 16/32/64/128, fp32 or bf16; per-row lengths clamped
+// never repeated); hd 16/32/64/112/128, fp32 or bf16; per-row lengths clamped
 // to [0, cap]; rows with length 0 give exact zeros; the paged form reads
 // K/V through page_table[b, pos / ps] at pos % ps, with no gathered copy
 // of the cache.
@@ -25,7 +25,11 @@
 // contiguous output bit for bit.
 // - Loads: each K or V row is read as 16-byte vectors, LPR = hd * elt / 16
 //   neighbouring lanes to a row (8 lanes at hd 64 in bf16), converted to
-//   fp32 in registers; no shared-memory staging. A lane group (a "slot")
+//   fp32 in registers; no shared-memory staging. A row's lane group is
+//   LPR rounded up to a power of two, LG: at hd 112 (kimi-k2) LPR is 14
+//   in bf16 and 28 in fp32, and the group's 16 or 32 lanes keep every
+//   xor-shuffle inside it; the LG - LPR idle lanes load nothing and hold
+//   zero query columns, so they add exact zeros to the dots and merges. A lane group (a "slot")
 //   issues U = 2 rows of K and V before it uses any, so four 16-byte loads
 //   per lane are in flight: with more, the registers they take leave fewer
 //   blocks on an SM, and 4 or 8 rows measured slower at G 1 and G 7.
@@ -132,8 +136,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               unsigned* __restrict__ count, int H, int KVH, int cap,
               int split, int n_split, float qscale, int vec) {
   constexpr int VE = 16 / sizeof(T);     // elements in 16 bytes
-  constexpr int LPR = HD / VE;           // lanes per K/V row
-  constexpr int RPW = 32 / LPR;          // rows a warp loads at once
+  constexpr int LPR = HD / VE;           // lanes that load a K/V row
+  constexpr int LG = LPR <= 2 ? LPR : LPR <= 4 ? 4 : LPR <= 8 ? 8
+                   : LPR <= 16 ? 16 : 32;  // lanes per row group
+  constexpr int RPW = 32 / LG;           // rows a warp loads at once
   constexpr int NSLOT = NW * RPW;        // row slots of the block
   constexpr int U = 2;                   // rows in flight per slot
   __shared__ float red[NW][GB][HD + 2];  // per warp: acc[HD], m, l
@@ -152,13 +158,15 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const int end = min(start + split, len);
   const int ns = (len + split - 1) / split;
-  const int slot = warp * RPW + lane / LPR;
-  const int c0 = (lane % LPR) * VE;      // this lane's first column
+  const int slot = warp * RPW + lane / LG;
+  const int lc = lane % LG;
+  const bool act = LG == LPR || lc < LPR;  // idle lanes past the row
+  const int c0 = act ? lc * VE : 0;      // this lane's first column
 
   float qv[GB][VE];
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
-    if (g < G) {
+    if (g < G && act) {
       widen(load16(q + ((size_t)b * H + h * G + g) * HD + c0, vec), qv[g]);
 #pragma unroll
       for (int c = 0; c < VE; ++c) qv[g][c] *= qscale;
@@ -184,7 +192,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int pos = base + u * NSLOT + slot;
-      if (pos < end) {
+      if (pos < end && act) {
         const size_t off = (size_t)(pos - start) * addr.row;
         kr[u] = load16(kb + off, vec);
         vr[u] = load16(vb + off, vec);
@@ -203,7 +211,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < VE; ++c) d = fmaf(qv[g][c], kf[c], d);
 #pragma unroll
-        for (int o2 = LPR / 2; o2 > 0; o2 >>= 1)
+        for (int o2 = LG / 2; o2 > 0; o2 >>= 1)
           d += __shfl_xor_sync(0xffffffffu, d, o2);
         s[u][g] = base + u * NSLOT + slot < end ? d : NEG_INF;
       }
@@ -235,7 +243,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // slots of a warp: xor-shuffle butterfly over the slot bits of the lane
 #pragma unroll
-  for (int o2 = LPR; o2 < 32; o2 <<= 1) {
+  for (int o2 = LG; o2 < 32; o2 <<= 1) {
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
       const float mo = __shfl_xor_sync(0xffffffffu, m[g], o2);
@@ -357,6 +365,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
       case 16: DECODE_CASE(float, 16);
       case 32: DECODE_CASE(float, 32);
       case 64: DECODE_CASE(float, 64);
+      case 112: DECODE_CASE(float, 112);
       case 128: DECODE_CASE(float, 128);
     }
   } else if (dtype == 1) {
@@ -364,6 +373,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
       case 16: DECODE_CASE(__nv_bfloat16, 16);
       case 32: DECODE_CASE(__nv_bfloat16, 32);
       case 64: DECODE_CASE(__nv_bfloat16, 64);
+      case 112: DECODE_CASE(__nv_bfloat16, 112);
       case 128: DECODE_CASE(__nv_bfloat16, 128);
     }
   }

@@ -5,7 +5,8 @@
 // heads already repeated; online softmax with fp32 m, l and accumulator;
 // causal mask top-left aligned (qpos >= kpos); key tiles wholly above the
 // diagonal never loaded, the diagonal tile and key padding masked to
-// -1e30; l clamped to 1e-30; hd in {16, 32, 64, 128}.
+// -1e30; l clamped to 1e-30; hd in {16, 32, 64, 112, 128} (112 is
+// kimi-k2's 7168 / 64: 7 k-steps of 16 for QK^T, 14 n-tiles of 8 for PV).
 //
 // Bound on the card: causal work is about 2*BH*S^2*hd FLOPs (QK^T and PV
 // over the lower triangle) against 4*BH*S*hd*2 bytes in bf16, about S/4
@@ -26,7 +27,9 @@
 // - K and V tiles (64 keys) stay bf16 in shared memory, rows padded by 16
 //   bytes so every ldmatrix (.trans for V) is free of bank conflicts, and
 //   double-buffered by cp.async: tile j+1 loads while tile j multiplies.
-//   Shared memory is 5 tiles, 87 KB at hd 128: two blocks per SM.
+//   Shared memory is 5 tiles, 87 KB at hd 128: two blocks per SM. At hd
+//   112 a row is 240 bytes (60 words): the 8 rows of an ldmatrix still
+//   land on distinct 4-bank groups.
 // - S = Q K^T runs on bf16 tensor cores with fp32 accumulation; bf16
 //   products are exact in fp32, as in the Pallas kernel's fp32 upcast.
 //   Q's fragments are re-read from shared memory at each tile, which keeps
@@ -482,6 +485,7 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
     FLASH_CASE(16)
     FLASH_CASE(32)
     FLASH_CASE(64)
+    FLASH_CASE(112)
     FLASH_CASE(128)
     default: return cudaErrorInvalidValue;
   }

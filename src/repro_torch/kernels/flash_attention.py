@@ -11,7 +11,7 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)   # 112: kimi-k2's 7168 / 64
 
 
 def flash_attention(q, k, v, *, causal: bool = True):

@@ -26,7 +26,7 @@ DECODE_BLOCK_S = 128
 
 
 def attn_block(p, cfg, x, positions, *, cache=None, lengths=None,
-               page_table=None):
+               page_table=None, full=None, block_s: int = DECODE_BLOCK_S):
     """Returns (out (B, S, d), cache).
 
     Prefill (``cache is None``) returns this layer's (k, v), each
@@ -34,8 +34,12 @@ def attn_block(p, cfg, x, positions, *, cache=None, lengths=None,
     (B, S_max, KVH, hd), or a page pool (n_pages, page_size, KVH, hd) with
     ``page_table`` (B, pages_per_row) int32 — writes the new token at
     ``lengths`` in place and attends over ``lengths + 1`` positions.
-    ``lengths`` is int32 on the cache's device and must stay below the
-    row's capacity: unlike JAX's scatter, an out-of-range write raises.
+    ``lengths`` is int32 on the cache's device. ``full`` is None, or a
+    (B,) bool tensor marking the rows whose length already equals their
+    capacity (the cache depth, or their table's pages): such a row writes
+    nothing and attends over its full cache, as the JAX contiguous path
+    does when its scatter drops the out-of-range write. ``block_s`` is the
+    cache positions each split of the contiguous decode kernel sweeps.
     """
     B, S, _ = x.shape
     q, k, v = qkv_proj(p, cfg, x, positions)
@@ -56,19 +60,25 @@ def attn_block(p, cfg, x, positions, *, cache=None, lengths=None,
             raise ValueError(f"decode takes one token per row, got {S}")
         k_cache, v_cache = cache
         rows = torch.arange(B, device=x.device)
-        pos = lengths.long()
+        pos = at = lengths.long()
+        if full is not None:
+            # a full row (pos == capacity) rewrites the value its last
+            # position holds: no out-of-range index is formed
+            at = pos - full.long()
         if page_table is not None:
             ps = k_cache.shape[1]
-            page = page_table.long()[rows, pos // ps]
-            k_cache[page, pos % ps] = k[:, 0]
-            v_cache[page, pos % ps] = v[:, 0]
+            idx = (page_table.long()[rows, at // ps], at % ps)
+        else:
+            idx = (rows, at)
+        for dst, new in ((k_cache, k[:, 0]), (v_cache, v[:, 0])):
+            dst[idx] = (new if full is None
+                        else torch.where(full[:, None, None], dst[idx], new))
+        if page_table is not None:
             o = ops.paged_decode(q[:, 0], k_cache, v_cache, page_table,
                                  lengths + 1)
         else:
-            k_cache[rows, pos] = k[:, 0]
-            v_cache[rows, pos] = v[:, 0]
             o = ops.decode(q[:, 0], k_cache, v_cache, lengths + 1,
-                           block_s=DECODE_BLOCK_S)
+                           block_s=block_s)
         o = o[:, None]
         new_cache = cache
     out = o.reshape(B, S, cfg.q_dim) @ p["wo"]
@@ -76,18 +86,20 @@ def attn_block(p, cfg, x, positions, *, cache=None, lengths=None,
 
 
 def block_apply(p, cfg, x, positions, i: int, *, cache=None, lengths=None,
-                page_table=None):
+                page_table=None, full=None, block_s: int = DECODE_BLOCK_S):
     """One pre-norm block at pattern position ``i``: attention or Mamba2,
     then the MoE layer (with the dense residual or shared MLP where the
     config has one) or the dense MLP. Returns (x, cache).
 
     ``cache`` is the layer's: (k, v) for attention, (conv tails, state)
-    for Mamba2; ``lengths`` and ``page_table`` concern attention only.
+    for Mamba2; ``lengths``, ``page_table``, ``full`` and ``block_s``
+    concern attention only.
     """
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if cfg.block_kind(i) == "attn":
         out, new_cache = attn_block(p["attn"], cfg, h, positions, cache=cache,
-                                    lengths=lengths, page_table=page_table)
+                                    lengths=lengths, page_table=page_table,
+                                    full=full, block_s=block_s)
     else:
         out, new_cache = mamba_apply(p["mamba"], cfg, h, cache=cache)
     x = x + out

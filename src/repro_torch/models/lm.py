@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models.blocks import block_apply
+from repro_torch.models.blocks import DECODE_BLOCK_S, block_apply
 from repro_torch.models.layers import rmsnorm
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -139,9 +139,14 @@ class LM(nn.Module):
         return logits[:, 0], caches
 
     @torch.no_grad()
-    def decode(self, tokens, lengths, caches, page_table=None):
+    def decode(self, tokens, lengths, caches, page_table=None, *,
+               full=None, block_s: int = DECODE_BLOCK_S):
         """tokens: (B, 1[, ncb]); lengths: (B,) int32 current cache fill on
         the device; page_table: (B, pages_per_row) int32 for paged caches.
+        ``full``: None when no row's length equals its capacity, else a
+        (B,) bool tensor on the device marking those rows, which then
+        write nothing (``attn_block``). ``block_s``: the contiguous decode
+        kernel's split.
 
         Writes each row's new K/V, conv tails and SSM state into ``caches``
         in place and returns (logits (B, [ncb,] Vp), caches).
@@ -152,7 +157,8 @@ class LM(nn.Module):
             for i, p in enumerate(layer):
                 cache = tree_map(lambda t, r=r: t[r], caches[f"pos{i}"])
                 x, _ = block_apply(p, self.cfg, x, positions, i, cache=cache,
-                                   lengths=lengths, page_table=page_table)
+                                   lengths=lengths, page_table=page_table,
+                                   full=full, block_s=block_s)
         x = rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps)
         return self.logits(x)[:, 0], caches
 

@@ -4,8 +4,8 @@ The port runs on one card, so the MoE layer is the JAX package's no-mesh
 path, ``_moe_local`` with every expert local: route each token to its
 top-k experts, fill each expert's ``C`` capacity slots in token-major,
 k-minor order, drop what overflows, run the three expert products through
-the grouped-GEMM kernel (``kernels.ops.gmm``) and scatter-add the gated
-outputs back to their tokens.
+the grouped-GEMM kernel (``kernels.ops.gmm``) and add the gated outputs
+back into their tokens in a fixed order.
 
 The capacity ``C = ceil(T * k / E * capacity_factor)`` counts all ``T =
 B * S`` rows of the call, as the reference does: whether one request's
@@ -96,7 +96,17 @@ def moe_apply(p, cfg, x, ids, wts):
         h = torch.relu(h).square()
     ye = ops.gmm(h, p["w_out"], counts)
     ye = (ye.float() * gate.reshape(E, C, 1)).to(x.dtype)
-    # empty slots carry token T: they add into a spare row that is cut off
-    y = torch.zeros(T + 1, d, dtype=x.dtype, device=x.device)
-    y.index_add_(0, tok.reshape(-1), ye.reshape(E * C, d))
-    return y[:T].reshape(B, S, d)
+    # Combine: each token's kept outputs, added one at a time in x's dtype
+    # in table order (experts ascending), the order in which the
+    # reference's scatter-add applies them. A fixed order: index_add_ on
+    # the card adds in whatever order its atomics land, which changes the
+    # bf16 sum of three or more outputs (top-8) from run to run.
+    order = torch.argsort(ids.reshape(T, K), dim=1)
+    at = torch.gather((ids.reshape(T * K) * C + slot).reshape(T, K), 1, order)
+    keep = torch.gather(kept.reshape(T, K), 1, order)
+    at = torch.where(keep, at, 0)       # a dropped slot may lie past E * C
+    parts = torch.where(keep[..., None], ye.reshape(E * C, d)[at], 0)
+    y = torch.zeros(T, d, dtype=x.dtype, device=x.device)
+    for k in range(K):
+        y = y + parts[:, k]
+    return y.reshape(B, S, d)

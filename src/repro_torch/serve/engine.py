@@ -31,6 +31,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.models.blocks import DECODE_BLOCK_S
 from repro_torch.models.lm import LM, resolve_device
 from repro_torch.serve.paged import PagedKVAllocator
 
@@ -50,11 +51,15 @@ class Engine:
     """``prefill_chunk``: run every grouped prefill at this fixed batch
     size, padding the final partial chunk by repeating its last row (the
     padded outputs are discarded). ``None`` prefills each group at its
-    exact size. ``device`` must be the LM's; ``None`` means the card."""
+    exact size. ``decode_block_s``: the cache positions each split of the
+    contiguous decode kernel sweeps (a paged engine splits by page); with
+    it equal to another engine's ``page_size`` the two decode bit for bit
+    alike. ``device`` must be the LM's; ``None`` means the card."""
 
     def __init__(self, lm: LM, *, max_batch: int, max_len: int,
                  prefill_chunk: int | None = None,
-                 page_size: int | None = None, device=None):
+                 page_size: int | None = None,
+                 decode_block_s: int = DECODE_BLOCK_S, device=None):
         self.device = resolve_device(device)
         if lm.device != self.device:
             raise ValueError(f"LM lives on {lm.device}, engine on "
@@ -65,6 +70,7 @@ class Engine:
         self.lm = lm
         self.max_batch, self.max_len = max_batch, max_len
         self.page_size = page_size
+        self.decode_block_s = decode_block_s
         self.lengths = np.zeros((max_batch,), np.int32)
         self.active: dict[int, Request] = {}     # slot -> request
         self.free = list(range(max_batch))
@@ -196,9 +202,14 @@ class Engine:
                 else self._last_tok[:, None, :])
         table = (None if self.pager is None
                  else self._to_device(self._page_table))
+        # a zero-budget request admitted at max_len decodes once from a full
+        # row; only then does the step need the masked cache write
+        full = self.lengths >= self.max_len
         logits, self.caches = self.lm.decode(
             self._to_device(toks), self._to_device(self.lengths),
-            self.caches, page_table=table)
+            self.caches, page_table=table,
+            full=self._to_device(full) if full.any() else None,
+            block_s=self.decode_block_s)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
         mask = self._active_mask
         self._last_tok[mask] = nxt[mask]

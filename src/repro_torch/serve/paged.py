@@ -1,24 +1,28 @@
 """Paged KV-cache accounting: fixed-size pages, owner page lists, quotas.
 
-The port's own copy of ``repro.serve.paged``: a free-list ledger of
-fixed-size KV-cache pages with per-owner page lists, live per-tenant
-quotas and a reserved null page. The physical ``Engine`` keys owners by
-batch-slot index and points every inactive row's page table at the null
-page. Plain ints and lists; no tensor touches this module.
+This module is the *physical* half of the fleet's isolation story. The
+``PartitionedEngine`` enforces ``sum_i(active_i * width_i) <= capacity`` as
+slot arithmetic; ``PagedKVAllocator`` grounds the same invariant in a real
+resource — fixed-size KV-cache pages handed out from one shared free list.
+A tenant's width is literally its page quota: a width-``w`` batching slot
+maps to ``w * pages_per_unit`` pages of KV cache, so an oversold pool is
+not an accounting bug but an allocation failure.
+
+The allocator is deliberately jax-free (plain ints and lists) so the
+emulated fleet, the bench drivers, and the physical ``Engine`` all share
+one ledger implementation. Owners are opaque hashable keys: the engine
+keys by batch-slot index, the fleet keys by job id.
 
 Conservation invariants are guarded raises (``ServeInvariantError``), not
-asserts, so they survive ``python -O``. The error class lives here until
-the serve driver is ported, and then moves to ``serve/driver.py``.
+asserts — they survive ``python -O`` (see DC101).
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Hashable, List, Optional
 
-__all__ = ["PagedKVAllocator", "ServeInvariantError", "pages_for"]
+from repro_torch.serve.driver import ServeInvariantError
 
-
-class ServeInvariantError(RuntimeError):
-    """A serving invariant broke: the page ledger and the slots disagree."""
+__all__ = ["PagedKVAllocator", "pages_for"]
 
 
 def pages_for(tokens: int, page_size: int) -> int:

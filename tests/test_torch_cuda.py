@@ -48,7 +48,11 @@ def _close(out, ref, dtype):
                           # Sk != S without the causal mask, both ways
                           (3, 100, 37, 32, False), (2, 40, 300, 128, False),
                           # arctic's prefill heads: 2 prompts x 56, S 512
-                          (112, 512, 512, 128, True)])
+                          (112, 512, 512, 128, True),
+                          # kimi-k2's hd 112: a lone token, a ragged tile,
+                          # a 512-token prompt of its 64 heads
+                          (64, 1, 1, 112, True), (128, 40, 40, 112, True),
+                          (64, 512, 512, 112, True)])
 def test_flash_kernel_matches_plain(card, BH, S, Sk, hd, causal, dtype):
     q, k, v = (torch.randn(s, generator=card, device="cuda").to(dtype)
                for s in ((BH, S, hd), (BH, Sk, hd), (BH, Sk, hd)))
@@ -61,7 +65,9 @@ def test_flash_kernel_matches_plain(card, BH, S, Sk, hd, causal, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,KVH,hd,S,ps",
                          [(4, 4, 2, 16, 64, 16), (3, 8, 8, 32, 96, 32),
-                          (2, 28, 4, 128, 256, 64)])
+                          (2, 28, 4, 128, 256, 64),
+                          # hd 112: 14 (bf16) or 28 (fp32) lanes a row
+                          (2, 64, 8, 112, 256, 64), (3, 7, 1, 112, 128, 32)])
 def test_decode_kernels_match_plain_and_each_other(card, B, H, KVH, hd, S,
                                                    ps, dtype):
     """Contiguous and paged decode against the plain version; zero-length
@@ -110,9 +116,12 @@ def _pools(card, k, v, ps):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,KVH,hd", [(32, 32, 64), (56, 8, 128),
                                       (16, 8, 16), (28, 4, 32),
-                                      (8, 1, 128), (12, 3, 64)])
+                                      (8, 1, 128), (12, 3, 64),
+                                      (8, 8, 112), (28, 4, 112),
+                                      (64, 8, 112)])
 def test_decode_edges_repeat_bitwise(card, H, KVH, hd, dtype):
-    """G of 1, 7, 2, 7, 8 and 4 over every hd: rows of length 0, 1, at
+    """G of 1, 7, 2, 7, 8 and 4 over every hd, and 1, 7 and 8 at kimi-k2's
+    hd 112: rows of length 0, 1, at
     cap, at a split's end and ending mid-split, with splits of 128 as the
     engine runs them. Two calls give equal bits, paged == contiguous."""
     B, S, ps = 6, 384, 128
@@ -130,6 +139,33 @@ def test_decode_edges_repeat_bitwise(card, H, KVH, hd, dtype):
     paged = ops.paged_decode(q, kp, vp, table, lengths)
     assert ops.launch_counts()["paged_decode_attention"] == before + 1
     assert torch.equal(paged, out)
+    assert torch.equal(ops.paged_decode(q, kp, vp, table, lengths), paged)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_at_the_fleet_shape(card, dtype):
+    """The serve fleet's engine: musicgen's heads, a 48-position cache in
+    pages of 8, each row's table past its last page on the NaN null page
+    as the engine leaves it; lengths 0, 1, a page, mid-page, the cap and
+    the cap + 1 a full row passes. Paged and contiguous at block_s 8
+    against the plain version, equal bit for bit, each repeatable."""
+    B, H, hd, S, ps = 8, 32, 64, 48, 8
+    q = torch.randn(B, H, hd, generator=card, device="cuda").to(dtype)
+    k, v = (torch.randn(B, S, H, hd, generator=card,
+                        device="cuda").to(dtype) for _ in range(2))
+    lens = [0, 1, 8, 13, 33, 47, 48, 49]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kp, vp, table = _pools(card, k, v, ps)
+    for b, n in enumerate(lens):
+        table[b, -(-min(n, S) // ps):] = 0
+    ref = decode_attention_ref(q, k, v, lengths)
+    out = ops.decode(q, k, v, lengths, block_s=ps)
+    paged = ops.paged_decode(q, kp, vp, table, lengths)
+    _close(out, ref, dtype)
+    _close(paged, ref, dtype)
+    assert bool((paged[0] == 0).all())
+    assert torch.equal(paged, out)
+    assert torch.equal(ops.decode(q, k, v, lengths, block_s=ps), out)
     assert torch.equal(ops.paged_decode(q, kp, vp, table, lengths), paged)
 
 
@@ -172,7 +208,18 @@ def _offset(t):
 def test_decode_unaligned_inputs(card, dtype):
     """q, k and v off 16-byte alignment: the same bits as aligned copies,
     contiguous and paged."""
-    B, H, KVH, hd, S, ps = 3, 16, 4, 64, 256, 128
+    _unaligned_case(card, dtype, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_unaligned_inputs_hd112(card, dtype):
+    """The same at kimi-k2's hd 112, whose rows fill 14 or 28 of a lane
+    group's 16 or 32 lanes."""
+    _unaligned_case(card, dtype, 112)
+
+
+def _unaligned_case(card, dtype, hd):
+    B, H, KVH, S, ps = 3, 16, 4, 256, 128
     q = torch.randn(B, H, hd, generator=card, device="cuda").to(dtype)
     k, v = (torch.randn(B, S, KVH, hd, generator=card,
                         device="cuda").to(dtype) for _ in range(2))
@@ -365,3 +412,120 @@ def test_prefill_of_one_request_matches_cpu(card, arch):
                 device="cuda").prefill({"tokens": toks})
     assert ops.launch_counts()["flash_attention"] > before
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+# ------------------------------------------------------ engine and driver
+@pytest.mark.parametrize("page_size", [None, 8])
+def test_zero_budget_prompt_at_max_len_on_the_card(card, page_size):
+    """A prompt of exactly max_len with a budget of 0 decodes once with its
+    write at position max_len: on the card the row writes nothing (no
+    device assert) and serves the CPU's tokens, in fp32 on qwen2-7b's
+    smoke config."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import LM, tree_map
+    from repro_torch.serve.engine import Engine, Request
+    cfg = dataclasses.replace(get_smoke_config("qwen2-7b"), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    max_len = 32
+
+    def run(device, p):
+        r = np.random.default_rng(5)
+        reqs = [Request(rid=0, tokens=r.integers(1, 256, (max_len,)).astype(
+                    np.int32), max_new_tokens=0),
+                Request(rid=1, tokens=r.integers(1, 256, (6,)).astype(
+                    np.int32), max_new_tokens=3)]
+        eng = Engine(LM(cfg, p, device=device), max_batch=2, max_len=max_len,
+                     page_size=page_size, device=device)
+        done = eng.run(reqs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return [(q.rid, np.asarray(q.out_tokens).tolist()) for q in done]
+
+    got = run("cuda", tree_map(lambda t: t.cuda(), params))
+    assert got == run("cpu", params)
+    assert [rid for rid, _ in got] == [0, 1] and len(got[0][1]) == 2
+
+
+def test_serve_driver_on_a_two_layer_musicgen_matches_emulated_twin(card):
+    """A ServeDriver over one Montage DAG on the card, through
+    TorchEngineAdapter, on musicgen-large at published widths cut to 2
+    layers (bf16, paged): every task completes in dependency order, every
+    slot and page comes back, and the ServeStats, every task's (start,
+    finish) and the completion order equal the EmulatedEngine twin's."""
+    import dataclasses
+
+    from benchmarks import torch_serve_fleet as tsf
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.driver import EmulatedEngine
+    from repro_torch.serve.engine import Engine
+    cfg = dataclasses.replace(get_config("musicgen-large"), n_layers=2)
+    lm = LM(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda"), device="cuda")
+    eng = Engine(lm, max_batch=4, max_len=48, page_size=8, device="cuda")
+    before = ops.launch_counts()["paged_decode_attention"]
+    got = tsf.dag_run(eng)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode_attention"] == \
+        before + 2 * eng.steps
+    assert not eng.active and len(eng.free) == 4
+    assert eng.pager.used_pages == 0
+    assert got == tsf.dag_run(EmulatedEngine(4, max_len=48))
+
+
+def test_fleet_tokens_paged_equal_contiguous_on_a_two_layer_musicgen(card):
+    """The one-tenant fleet of ``benchmarks/torch_serve_fleet.py`` on the
+    card over musicgen-large at published widths cut to 2 layers (bf16):
+    the paged engine (page size 8) and the contiguous one (block_s 8)
+    serve every request the same tokens, bit for bit, and both equal the
+    EmulatedEngine twin's stats (``fleet_row`` raises otherwise)."""
+    import dataclasses
+
+    from benchmarks import torch_serve_fleet as tsf
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    cfg = dataclasses.replace(get_config("musicgen-large"), n_layers=2)
+    lm = LM(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda"), device="cuda")
+    row = tsf.fleet_row(lm, "1", **tsf.DEFAULTS)
+    assert row["token_mismatches"] == 0
+    assert row["requests"] == row["tasks"] == 52
+    assert row["decode_steps"] == row["twin_decode_steps"] == 215
+    assert row["launches"]["paged_decode_attention"] == 2 * 215
+    assert row["contiguous_launches"]["decode_attention"] == 2 * 215
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_apply_top8_repeats_bitwise(card, dtype):
+    """kimi-k2's top-8: a token's eight gated outputs are added in a fixed
+    order, so two calls on the card give equal bits (atomic adds did not:
+    kimi's contiguous and paged runs then served different tokens), and
+    the card matches the CPU's plain path on the same routing."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import tree_map
+    from repro_torch.models.moe import moe_apply, route
+    cfg = dataclasses.replace(get_smoke_config("kimi-k2-1t-a32b"),
+                              n_experts=16, top_k=8, dtype=dtype)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p = tree_map(lambda t: t[0], params["blocks"]["pos0"])["moe"]
+    x = torch.randn(4, 24, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).to(
+                        getattr(torch, dtype))
+    pc = tree_map(lambda t: t.cuda(), p)
+    ids, wts, _ = route(pc, cfg, x.cuda())
+    out = moe_apply(pc, cfg, x.cuda(), ids, wts)
+    assert torch.equal(moe_apply(pc, cfg, x.cuda(), ids, wts), out)
+    want = moe_apply(p, cfg, x, ids.cpu(), wts.cpu())
+    tol = {"float32": 1e-4, "bfloat16": 5e-2}[dtype]
+    torch.testing.assert_close(out.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)

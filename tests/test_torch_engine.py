@@ -187,6 +187,40 @@ def test_prompt_at_max_len_minus_one_stays_in_range(musicgen_lm, page_size):
     assert len(full.out_tokens) == 2 and len(other.out_tokens) == 6
 
 
+@pytest.mark.parametrize("page_size", [None, 8])
+def test_zero_budget_prompt_at_max_len_matches_jax_contiguous(page_size):
+    """A prompt of exactly max_len with a budget of 0 is admitted and
+    decoded once with its write at position max_len. The row writes
+    nothing and attends over its full cache: its tokens equal the JAX
+    contiguous engine's (whose scatter drops the write), paged and
+    contiguous alike, in fp32 on qwen2-7b's smoke config."""
+    arch, max_len = "qwen2-7b", 32
+    jcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    jlm = JaxLM(jcfg)
+    jparams = jlm.init(jax.random.key(0))[0]
+    rt = jlm.runtime(ParallelConfig(attn_q_chunk=16, attn_kv_chunk=16))
+    lm = LM(dataclasses.replace(port_smoke(arch), dtype="float32"),
+            params_from_jax(jax.tree.map(np.asarray, jparams), "cpu"),
+            device="cpu")
+
+    def requests(cls):
+        r = np.random.default_rng(5)
+        return [cls(rid=0, tokens=r.integers(1, 256, (max_len,)).astype(
+                    np.int32), max_new_tokens=0),
+                cls(rid=1, tokens=r.integers(1, 256, (6,)).astype(np.int32),
+                    max_new_tokens=3)]
+
+    want = JaxEngine(jlm, jparams, rt, max_batch=2,
+                     max_len=max_len).run(requests(JaxRequest))
+    got = Engine(lm, max_batch=2, max_len=max_len, page_size=page_size,
+                 device="cpu").run(requests(Request))
+    assert [r.rid for r in got] == [r.rid for r in want] == [0, 1]
+    assert len(got[0].out_tokens) == 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g.out_tokens),
+                                      np.asarray(w.out_tokens))
+
+
 # ----------------------------------------------------- the slice
 @pytest.mark.parametrize("page_size", [None, 8])
 def test_engine_matches_jax_engine_fp32(page_size):

@@ -1,7 +1,8 @@
 """The port stands alone and never falls back.
 
-- No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports jax or
-  anything of ``repro``; importing every port module loads neither.
+- No module of ``src/repro_torch``, not ``chip_smoke.py`` and not
+  ``benchmarks/torch_serve_fleet.py`` imports jax or anything of
+  ``repro``; importing every port module loads neither.
 - Entry points run on the card unless the caller passes ``device="cpu"``:
   without a card they raise instead of quietly using the CPU.
 - The kernel builder raises without nvcc; the kernel wrappers raise on
@@ -39,7 +40,8 @@ from repro_torch.serve.engine import Engine, Request  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "benchmarks" / "torch_serve_fleet.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .removesuffix(".__init__") for p in PORT.rglob("*.py"))
