@@ -67,6 +67,22 @@ dsp. the DSP control plane on musicgen-large at full width and depth
    beside the one ``plan`` picks (the measurements its split rule rests
    on).
 
+train. the HTC training job (``repro_torch.train``), which reaches no
+   kernel (the kernels are forward-only; every launch counter stays 0
+   across the phase): (a) a 2-layer cut of musicgen-large at published
+   widths in fp32, seq 512, batch 2: loss and every gradient leaf on the
+   card against the CPU's on the same weights and batch; (b) the same cut
+   in bf16 through ``train_loop``: 12 steps with checkpoints every 4 and
+   a preemption before step 6, whose 14 losses equal the uninterrupted
+   run's step for step, bit for bit, and fall; one loss and backward under
+   ``torch.use_deterministic_algorithms``; (c) musicgen-large at full
+   width and depth in bf16, seq 4096, batch 8 in 8 microbatches, remat
+   per layer: 3 steps from a fresh init with seconds, tokens/s and model
+   FLOPs as a share of the bf16 peak per step, the peak device memory,
+   and one microbatch under torch.profiler (busy share, top items); (d)
+   jamba's smoke config (Mamba2, attention and MoE in one stack) in fp32,
+   card against CPU as in (a).
+
 The last three lines are the ``nvidia-smi`` name and power limit, a JSON
 object with one entry per kernel, and ``{"ok": true, "device": ...}``.
 """
@@ -74,8 +90,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -93,6 +112,13 @@ TOL = {"float32": 2e-5,       # tests/test_kernels.py:24: fp32 sums reorder
 SSD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (8e-2, 8e-2)}
 GMM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-2, 4e-1)}
 REF_TOL = 1e-3                # fp32 logits, card vs CPU (cuBLAS sum order)
+# fp32 training, card vs CPU, as tests/test_torch_train_parity.py holds the
+# port against JAX: loss within 1e-5 relative; each gradient leaf within
+# rtol 1e-4 and atol ATOL x max(1, the leaf's largest |gradient|), ATOL
+# 1e-6, or 1e-4 for a stack of Mamba2 layers (each amplifies the fp32
+# rounding of the other side's sum order)
+TRAIN_LOSS_RTOL, TRAIN_RTOL = 1e-5, 1e-4
+TRAIN_ATOL = {"dense": 1e-6, "deep ssm": 1e-4}
 SPIN_CYCLES = 1_000_000       # ~0.5 ms of device spin ahead of a timed call
 ARCH = "musicgen-large"
 # (arch, layers kept or None for all, smoke config, why)
@@ -1358,6 +1384,251 @@ def phase_times(launches, kimi_launches, arctic_counts, name, per_call):
     return rows
 
 
+# ----------------------------------------------------------------- train
+def loss_and_grads(lm, batch, parallel):
+    """(loss, metrics, {path: gradient}) of one forward and backward."""
+    from repro_torch.models.lm import tree_leaves
+    paths, leaves = zip(*tree_leaves(lm.params))
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, metrics = lm.loss(batch, parallel)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.item(), metrics, dict(zip(paths, grads))
+
+
+def train_card_vs_cpu(label, cfg, rcfg, kind):
+    """Loss and every gradient leaf on the card against the CPU's plain
+    path, on the same weights and batch, fp32; prints the worst errors."""
+    from repro_torch.bridge import init_params
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.models.lm import LM, tree_map
+    check(cfg.dtype == "float32" and not torch.backends.cuda.matmul.allow_tf32,
+          f"train {label}: the card check needs fp32 without TF32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                         "cuda")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    batch = synthetic_batches(rcfg, "cuda")(0)
+    t0 = time.perf_counter()
+    lg, mg, gg = loss_and_grads(LM(cfg, params, device="cuda"), batch,
+                                rcfg.parallel)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lc, mc, gc_ = loss_and_grads(LM(cfg, cpu_params, device="cpu"),
+                                 {k: v.cpu() for k, v in batch.items()},
+                                 rcfg.parallel)
+    t2 = time.perf_counter()
+    loss_err = abs(lg - lc) / abs(lc)
+    check(math.isfinite(lg) and loss_err <= TRAIN_LOSS_RTOL,
+          f"train {label}: loss card {lg!r} vs CPU {lc!r}, rel err "
+          f"{loss_err:.3e} > {TRAIN_LOSS_RTOL}")
+    worst_abs, worst_ratio, worst_leaf = 0.0, 0.0, ""
+    for path, ref in gc_.items():
+        out = gg[path].cpu()
+        scale = max(1.0, ref.abs().max().item())
+        bound = TRAIN_RTOL * ref.abs() + TRAIN_ATOL[kind] * scale
+        err = (out - ref).abs()
+        check(bool(torch.isfinite(out).all()), f"train {label}: {path} "
+              "gradient not finite on the card")
+        ratio = (err / bound).max().item()
+        if ratio > worst_ratio:
+            worst_ratio, worst_leaf = ratio, path
+        worst_abs = max(worst_abs, err.max().item())
+        check(ratio <= 1.0, f"train {label}: gradient {path} off by "
+              f"{err.max().item():.3e}, {ratio:.2f} x its bound (rtol "
+              f"{TRAIN_RTOL}, atol {TRAIN_ATOL[kind]} x {scale:.3g})")
+    phase("train", label, f"{cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, fp32, seq {rcfg.shape.seq_len}, batch "
+          f"{rcfg.shape.global_batch}: loss card {lg:.6f} vs CPU {lc:.6f} "
+          f"(rel err {loss_err:.3e}, tol {TRAIN_LOSS_RTOL}); metrics ce "
+          f"{mg['ce'].item():.6f}/{mc['ce'].item():.6f}, moe_lb "
+          f"{mg['moe_lb_loss'].item():.6f}/{mc['moe_lb_loss'].item():.6f}; "
+          f"{len(gc_)} gradient leaves: worst abs err {worst_abs:.3e}, "
+          f"worst err / bound {worst_ratio:.3f} ({worst_leaf}; rtol "
+          f"{TRAIN_RTOL}, atol {TRAIN_ATOL[kind]} x max(1, leaf max)); "
+          f"card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s")
+
+
+def musicgen_cut(dtype):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(ARCH), n_layers=2, dtype=dtype)
+
+
+def train_resume(smi):
+    """(b): the preemptible loop on the card, bf16: losses bitwise equal to
+    the uninterrupted run's, falling; then one loss and backward under
+    torch.use_deterministic_algorithms (raises on an op that has no
+    deterministic implementation)."""
+    import numpy as np
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.train.loop import train_loop
+    cfg = musicgen_cut("bfloat16")
+    rcfg = RunConfig(model=cfg, shape=ShapeConfig("train_cut", "train", 512,
+                                                  2),
+                     learning_rate=3e-3, warmup_steps=2, total_steps=12)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ref = train_loop(rcfg, ckpt_dir=os.path.join(d, "ref"), num_steps=12,
+                         ckpt_every=4, device="cuda")
+        t1 = time.perf_counter()
+        rep = train_loop(rcfg, ckpt_dir=os.path.join(d, "pre"), num_steps=12,
+                         ckpt_every=4, fail_at={6: True}, device="cuda")
+    t2 = time.perf_counter()
+    check(rep.restarts == 1 and len(rep.losses) == 14,
+          f"train resume: {rep.restarts} restarts, {len(rep.losses)} losses")
+    check(rep.losses[:6] == ref.losses[:6] and rep.losses[6:] == ref.losses[4:]
+          and rep.final_loss == ref.final_loss,
+          f"train resume: losses differ from the uninterrupted run's: "
+          f"{rep.losses} vs {ref.losses}")
+    first, last = np.mean(ref.losses[:5]), np.mean(ref.losses[-5:])
+    check(all(math.isfinite(x) for x in ref.losses) and last < first - 0.1,
+          f"train resume: loss did not fall: first 5 mean {first}, last 5 "
+          f"mean {last}")
+    phase("train", "resume", f"{cfg.name}: {cfg.n_layers} layers, bf16, seq "
+          f"512, batch 2, lr 3e-3, warmup 2: 12 steps in {t1 - t0:.2f} s; "
+          f"with a preemption before step 6, {rep.restarts} restart and "
+          f"{len(rep.losses)} losses in {t2 - t1:.2f} s, equal to the "
+          f"uninterrupted run's step for step, bit for bit; mean of the "
+          f"first 5 {first:.4f}, of the last 5 {last:.4f}; losses "
+          + ", ".join(f"{x:.4f}" for x in ref.losses) + f"; {smi}")
+    from repro_torch.bridge import init_params
+    from repro_torch.models.lm import LM
+    lm = LM(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda"), device="cuda")
+    torch.use_deterministic_algorithms(True)
+    try:
+        loss_and_grads(lm, synthetic_batches(rcfg, "cuda")(0), rcfg.parallel)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    phase("train", "resume", "one loss and backward under torch."
+          "use_deterministic_algorithms(True): no op of the training route "
+          "lacks a deterministic implementation")
+
+
+def train_full(smi):
+    """(c): musicgen-large at full width and depth, bf16, seq 4096, batch
+    8 in 8 microbatches, remat per layer: 3 steps from a fresh init."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import (
+        ParallelConfig, RunConfig, ShapeConfig, get_config)
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.models.lm import LM, tree_leaves
+    from repro_torch.train.train_step import build_train_step
+    cfg = get_config(ARCH)
+    shape = ShapeConfig("train_card", "train", 4096, 8)
+    rcfg = RunConfig(model=cfg, shape=shape,
+                     parallel=ParallelConfig(microbatches=8))
+    check(cfg.n_layers == 48 and cfg.d_model == 2048 and cfg.dtype ==
+          "bfloat16" and rcfg.parallel.remat == "block",
+          "train full: not musicgen-large at published widths, bf16, remat")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda"), device="cuda")
+    step_fn, opt = build_train_step(lm, rcfg, "cuda")
+    state = opt.init(lm.params)
+    batches = synthetic_batches(rcfg, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_leaves(lm.params))
+    tokens = shape.global_batch * shape.seq_len
+    S, L, d = shape.seq_len, cfg.n_layers, cfg.d_model
+    flops = 6 * n_params * tokens + 12 * L * S * S * d * shape.global_batch
+    phase("train", "full", f"{cfg.name}: {L} layers, d_model {d}, "
+          f"{cfg.n_codebooks} codebooks, bf16, {n_params / 1e9:.3f} B params "
+          f"and optimizer state in {time.perf_counter() - t0:.2f} s; seq {S}, "
+          f"batch {shape.global_batch} in {rcfg.parallel.microbatches} "
+          f"microbatches, remat {rcfg.parallel.remat}; model FLOPs per step "
+          f"{flops / 1e12:.1f} T (6 N tokens + 12 L S^2 d per sequence, "
+          "recompute left out)")
+    for step in range(3):
+        batch = batches(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        loss, gnorm = met["loss"].item(), met["grad_norm"].item()
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"train full: step {step} loss {loss} grad_norm {gnorm}")
+        phase("train", "full", f"step {step}: {dt:.3f} s, "
+              f"{tokens / dt:.1f} tokens/s, model FLOPs {flops / dt / 1e12:.1f}"
+              f" T/s = {flops / dt / PEAK_BF16_FLOPS:.1%} of the "
+              f"{PEAK_BF16_FLOPS / 1e12:.0f} T/s bf16 peak; loss {loss:.4f}, "
+              f"ce {met['ce'].item():.4f}, grad_norm {gnorm:.4f}, lr "
+              f"{met['lr'].item():.3e}; {smi}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    phase("train", "full", f"peak device memory {peak:.2f} GiB "
+          f"(max_memory_allocated; bf16 params {n_params * 2 / 2**30:.2f} "
+          f"GiB, m and v {n_params * 4 / 2**30:.2f} GiB); {smi}")
+    check(peak < 80, f"train full: peak {peak:.2f} GiB")
+
+    # one microbatch's loss and backward: unprofiled, then profiled
+    leaves = [t for _, t in tree_leaves(lm.params)]
+    mb = {k: v[:1] for k, v in batches(0).items()}
+
+    def micro():
+        loss, _ = lm.loss(mb, rcfg.parallel)
+        torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+
+    micro()
+    t0 = time.perf_counter()
+    micro()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        micro()
+    by_name, n = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+            n += 1
+    if not n:
+        phase("train", "full", "microbatch device time: not measured (the "
+              "profiler saw no CUDA kernels)")
+        return
+    busy_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    phase("train", "full", f"one microbatch (seq {S}, loss and backward) "
+          f"under torch.profiler: {n} kernels, {busy_ms:.3f} ms of device "
+          f"time against {wall_ms:.3f} ms unprofiled ({busy_ms / wall_ms:.1%}"
+          " busy); top: " + "; ".join(f"{k[:70]} {v / 1e3:.3f} ms"
+                                      for k, v in top) + f"; {smi}")
+
+
+def phase_train(smi):
+    """The HTC training job on the card: (a)-(d) of the module docstring.
+    Every launch counter is set to 0 just before and read just after: the
+    training route reaches no kernel."""
+    from repro_torch.configs import (
+        ParallelConfig, RunConfig, ShapeConfig, get_smoke_config)
+    from repro_torch.kernels import ops
+    check(not torch.backends.cuda.matmul.allow_tf32, "train: TF32 is on")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    cut = musicgen_cut("float32")
+    train_card_vs_cpu("fp32", cut, RunConfig(
+        model=cut, shape=ShapeConfig("train_cut", "train", 512, 2)), "dense")
+    free_device_memory()
+    train_resume(smi)
+    free_device_memory()
+    train_full(smi)
+    free_device_memory()
+    jamba = dataclasses.replace(get_smoke_config("jamba-1.5-large-398b"),
+                                dtype="float32")
+    train_card_vs_cpu("jamba", jamba, RunConfig(
+        model=jamba, shape=ShapeConfig("train_smoke", "train", 64, 2),
+        parallel=ParallelConfig(attn_q_chunk=32, attn_kv_chunk=32)),
+        "deep ssm")
+    counts = ops.launch_counts()
+    check(not any(counts.values()), f"train: kernel launches {counts}: the "
+          "training route must reach no kernel")
+    phase("train", "done", f"launches across (a)-(d) {counts}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -1368,6 +1639,9 @@ def main():
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT / "benchmarks"))
+    # the train phase's deterministic-mode check needs cuBLAS configured
+    # before it starts (32 MiB of workspace, the H100 default)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     name, smi = phase_device()
     phase_build()
     phase_kernels()
@@ -1394,6 +1668,8 @@ def main():
     free_device_memory()
     rows = phase_times(launches, by_path["kimi-k2-1t-a32b"],
                        moe_counts_by_arch["arctic-480b"], smi, per_call)
+    free_device_memory()
+    phase_train(smi)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

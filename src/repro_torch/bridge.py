@@ -1,11 +1,13 @@
 """Weights for the port: carried over from the JAX package, or drawn anew.
 
 ``params_from_jax`` converts the JAX package's param tree, handed over as
-numpy arrays, into the port's nested dict of tensors, leaf for leaf; the
-tests use it to run both packages on the same weights. ``init_params``
-draws weights with a ``torch.Generator`` under the same shapes, laws,
-scales and dtypes as ``repro.models.module.Scope.param``; it cannot
-reproduce ``jax.random``'s draws, so parity runs use ``params_from_jax``.
+numpy arrays, into the port's nested dict of tensors, leaf for leaf, and
+``state_from_jax`` a JAX ``TrainState`` into the port's; the tests use
+them to run both packages on the same weights and optimizer state.
+``init_params`` draws weights with a ``torch.Generator`` under the same
+shapes, laws, scales and dtypes as ``repro.models.module.Scope.param``; it
+cannot reproduce ``jax.random``'s draws, so parity runs use
+``params_from_jax``.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.lm import DTYPES, resolve_device, tree_map
+from repro_torch.train.optimizer import TrainState
 
 # A leaf whose fp32 draw would exceed this is drawn in slices along its
 # leading (layer, expert) axes, straight into the leaf: arctic's stacked
@@ -141,18 +144,39 @@ def _fill_normal(out, std, generator):
                           dtype=torch.float32, device=out.device).mul_(std))
 
 
+def _build(cfg, make):
+    """The param tree of ``cfg``, each leaf ``make(full shape, spec)``:
+    block leaves carry the stacked leading ``R`` axis."""
+    repeats = cfg.n_layers // cfg.pattern_period
+
+    def build(spec, stack):
+        return {k: build(v, stack) if isinstance(v, dict)
+                else make(((stack,) if stack else ()) + v[0], v)
+                for k, v in spec.items()}
+
+    specs = param_specs(cfg)
+    blocks = specs.pop("blocks")
+    params = build(specs, None)
+    params["blocks"] = build(blocks, repeats)
+    return params
+
+
+def meta_params(cfg):
+    """The param tree of ``cfg`` as meta tensors: shapes and dtypes only."""
+    return _build(cfg, lambda full, spec: torch.empty(
+        full, dtype=spec[3] or DTYPES[cfg.dtype], device="meta"))
+
+
 def init_params(cfg, generator: torch.Generator, device=None):
     """Fresh weights on ``device`` (the card by default) from ``generator``,
     which must live on the same device. Block leaves carry the stacked
     leading ``R`` axis; the fan of a stacked weight is its per-layer
     ``shape[-2]``. Draws are fp32, then cast to the leaf's dtype."""
     device = resolve_device(device)
-    repeats = cfg.n_layers // cfg.pattern_period
 
-    def make(spec, stack):
+    def make(full, spec):
         shape, law, scale, dtype = spec
         dtype = dtype or DTYPES[cfg.dtype]
-        full = ((stack,) if stack else ()) + shape
         if law == "zeros":
             return torch.zeros(full, dtype=dtype, device=device)
         if law == "ones":
@@ -163,12 +187,15 @@ def init_params(cfg, generator: torch.Generator, device=None):
         _fill_normal(out, std, generator)
         return out
 
-    def build(spec, stack):
-        return {k: build(v, stack) if isinstance(v, dict) else make(v, stack)
-                for k, v in spec.items()}
+    return _build(cfg, make)
 
-    specs = param_specs(cfg)
-    blocks = specs.pop("blocks")
-    params = build(specs, None)
-    params["blocks"] = build(blocks, repeats)
-    return params
+
+def state_from_jax(state, device=None):
+    """A JAX ``TrainState`` (step, params, m, v; leaves through
+    ``np.asarray``) -> the port's ``TrainState`` on ``device`` (the card
+    by default), leaf for leaf and bit for bit."""
+    device = resolve_device(device)
+    return TrainState(step=int(np.asarray(state.step)),
+                      params=params_from_jax(state.params, device),
+                      m=params_from_jax(state.m, device),
+                      v=params_from_jax(state.v, device))

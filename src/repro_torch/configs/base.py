@@ -1,14 +1,16 @@
 """Model configuration: the port's own copy of ``repro.configs.base``.
 
-``ModelConfig`` and ``smoke_reduce`` are field-for-field copies of the JAX
-package's (a test pins the equality), so a config names the same model in
-both packages. ``ParallelConfig`` is copied with them; the port runs on one
-card and no module of this slice reads it yet.
+``ModelConfig``, ``ShapeConfig``, ``SHAPES``, ``ParallelConfig``,
+``RunConfig`` and ``smoke_reduce`` are field-for-field copies of the JAX
+package's (a test pins the equality), so a config names the same model and
+run in both packages. The port runs on one card: of ``ParallelConfig`` the
+training route reads ``remat``, ``microbatches``, the attention chunks and
+``attn_impl``, and refuses ``grad_compress_pod``.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass(frozen=True)
@@ -145,6 +147,28 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell. kind: train | prefill | decode."""
+    name: str
+    kind: str
+    seq_len: int
+    global_batch: int
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+# The four assigned LM shape cells.
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+
+@dataclass(frozen=True)
 class ParallelConfig:
     """How a step is sharded on the mesh. Axes: (pod?, data, model)."""
     strategy: str = "tp"          # tp | fsdp_tp  (param placement)
@@ -160,6 +184,23 @@ class ParallelConfig:
     grad_compress_pod: bool = False  # int8 cross-pod gradient all-reduce
     pp_over_pod: bool = False        # pipeline the pod axis instead of DP
 
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    seed: int = 0
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    adam_eps: float = 1e-8
+    moment_dtype: str = "bfloat16"   # bf16 moments: fits 1T-param opt state
+    master_dtype: str = "float32"    # master params fp32 unless fsdp'd big model
 
 
 def smoke_reduce(cfg: ModelConfig, **over) -> ModelConfig:

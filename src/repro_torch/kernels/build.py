@@ -142,6 +142,17 @@ def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def forbid_autograd(what: str, *tensors) -> None:
+    """Raise when autograd would record a kernel call: the kernels are
+    forward-only, so their outputs would carry no gradient back to their
+    inputs, and the weights behind those would get none, silently. The
+    training route runs plain tensor ops instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: a forward-only kernel called with grad mode on and an "
+            "input that requires grad; training takes the plain route")
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error (no fallback)."""
     if err:

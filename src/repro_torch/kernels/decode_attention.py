@@ -91,6 +91,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, block_s: int = 512):
     positions each split block sweeps. Lengths are clamped to [0, S];
     rows with length 0 return exact zeros.
     """
+    build.forbid_autograd("decode_attention", q, k_cache, v_cache)
     B, H, KVH, hd, G = check_decode_args(q, k_cache, v_cache, lengths,
                                          "decode_attention")
     S = k_cache.shape[1]

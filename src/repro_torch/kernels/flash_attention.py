@@ -20,6 +20,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     Returns (BH, S, hd) in q's dtype. CUDA tensors only: the kernel runs
     on the current stream, and a refused launch raises.
     """
+    build.forbid_autograd("flash_attention", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash_attention: {name} must be a CUDA tensor")

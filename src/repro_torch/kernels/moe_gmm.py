@@ -65,6 +65,7 @@ def moe_gmm(x, w, counts=None):
     weight. CUDA tensors only: the kernel runs on the current stream, and a
     refused launch raises. No dim need be a tile multiple.
     """
+    build.forbid_autograd("moe_gmm", x, w)
     for name, t in (("x", x), ("w", w)):
         if not t.is_cuda:
             raise ValueError(f"moe_gmm: {name} must be a CUDA tensor")

@@ -4,8 +4,9 @@ CPU tensor, an error for anything else.
 The choice follows only from the device of the tensor passed in. A CUDA
 tensor always goes to the hand-written kernel; if the kernel cannot be
 built or launched, the error propagates (no fallback to the plain
-version). The model calls these five functions and nothing else of
-``kernels``.
+version). Serving calls these five functions and nothing else of
+``kernels``; the training route calls none of them (the kernels are
+forward-only, and their wrappers raise under autograd).
 """
 from __future__ import annotations
 

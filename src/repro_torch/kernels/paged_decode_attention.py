@@ -27,6 +27,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths):
     the Pallas kernel's index map does. Lengths are clamped to
     [0, pages_per_row * page_size]; rows with length 0 return exact zeros.
     """
+    build.forbid_autograd("paged_decode_attention", q, k_pages, v_pages)
     B, H, KVH, hd, G = check_decode_args(q, k_pages, v_pages, lengths,
                                          "paged_decode_attention")
     ps = k_pages.shape[1]

@@ -58,6 +58,7 @@ def ssd_scan(x, dt, A, Bg, Cg, *, chunk: int):
     Returns (y (B, S, nh, hp) fp32, final state (B, nh, hp, ds) fp32) of
     the scan from a zero state. S must be a multiple of ``chunk``.
     """
+    build.forbid_autograd("ssd_scan", x, dt, A, Bg, Cg)
     for name, t in (("x", x), ("dt", dt), ("A", A), ("Bg", Bg), ("Cg", Cg)):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"ssd_scan: {name} must be a CUDA tensor on x's "

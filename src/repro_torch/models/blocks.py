@@ -8,15 +8,20 @@ K/V are written into the cache in place (``index_put_``), where the JAX
 package returns an updated copy that jit donates. Mamba2 layers run
 ``models.ssm`` (the ``ssd_scan`` kernel at prefill) and MoE layers
 ``models.moe`` (the ``moe_gmm`` kernel).
+
+Training runs ``block_train``: the same blocks over the whole sequence
+with no cache, through plain tensor ops only (``chunked_attention``,
+``ssd_chunked``, ``moe_train``), since the kernels are forward-only.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.attention import qkv_proj, repeat_kv
+from repro_torch.models.attention import (
+    chunked_attention, qkv_proj, repeat_kv)
 from repro_torch.models.layers import mlp_apply, rmsnorm
-from repro_torch.models.moe import moe_apply, route
+from repro_torch.models.moe import moe_apply, moe_train, route
 from repro_torch.models.ssm import mamba_apply
 
 # Cache positions each split of the contiguous decode kernel sweeps. A
@@ -102,11 +107,18 @@ def block_apply(p, cfg, x, positions, i: int, *, cache=None, lengths=None,
                                     full=full, block_s=block_s)
     else:
         out, new_cache = mamba_apply(p["mamba"], cfg, h, cache=cache)
-    x = x + out
+    return _ffn(p, cfg, x + out, i, moe_apply)[0], new_cache
+
+
+def _ffn(p, cfg, x, i: int, moe_fn):
+    """The block's second half: the MoE layer through ``moe_fn`` (with
+    the dense residual or shared MLP where the config has one), the dense
+    MLP, or nothing. Returns (x, aux losses: the router's, or {})."""
+    aux = {}
     if cfg.is_moe_layer(i):
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        ids, wts, _ = route(p["moe"], cfg, h)
-        y = moe_apply(p["moe"], cfg, h, ids, wts)
+        ids, wts, aux = route(p["moe"], cfg, h)
+        y = moe_fn(p["moe"], cfg, h, ids, wts)
         if cfg.dense_residual and cfg.d_ff > 0:
             y = y + mlp_apply(p["dense_mlp"], h, cfg.mlp_act)
         if cfg.n_shared_experts > 0:
@@ -115,4 +127,23 @@ def block_apply(p, cfg, x, positions, i: int, *, cache=None, lengths=None,
     elif cfg.d_ff > 0:
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
         x = x + mlp_apply(p["mlp"], h, cfg.mlp_act)
-    return x, new_cache
+    return x, aux
+
+
+def block_train(p, cfg, parallel, x, positions, i: int):
+    """The training route of block ``i`` over whole sequences, no cache:
+    attention through ``chunked_attention`` with the KV heads repeated
+    (chunks and ``impl`` from ``parallel``), Mamba2 through
+    ``ssd_chunked``, MoE through ``moe_train``. Returns (x, aux losses)."""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if cfg.block_kind(i) == "attn":
+        B, S, _ = h.shape
+        q, k, v = qkv_proj(p["attn"], cfg, h, positions)
+        o = chunked_attention(
+            q, repeat_kv(k, cfg.n_heads), repeat_kv(v, cfg.n_heads),
+            causal=True, q_chunk=parallel.attn_q_chunk,
+            kv_chunk=parallel.attn_kv_chunk, impl=parallel.attn_impl)
+        out = o.reshape(B, S, cfg.q_dim) @ p["attn"]["wo"]
+    else:
+        out, _ = mamba_apply(p["mamba"], cfg, h, train=True)
+    return _ffn(p, cfg, x + out, i, moe_train)

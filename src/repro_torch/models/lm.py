@@ -1,5 +1,5 @@
-"""Decoder LM assembly: embeddings -> layer loop -> head(s)
-(``repro.models.lm``, serving half).
+"""Decoder LM assembly: embeddings -> layer loop -> head(s) + losses
+(``repro.models.lm``).
 
 Params are the JAX package's nested dict, leaf for leaf: ``embed``
 (ncb, Vp, d), ``head`` (ncb, d, Vp), ``final_norm`` (d,) and
@@ -10,13 +10,24 @@ position i: attention ``(k, v)`` with k, v of (R, B, S, KVH, hd), or
 conv tails (R, B, k-1, ch) in the model's dtype, state (R, B, nh, hp, ds)
 fp32)``, slot-indexed in both modes. Where JAX scans over R, this module
 loops over per-layer views.
+
+Serving (``prefill``, ``decode``) runs under ``torch.no_grad`` through the
+kernels. Training (``loss``) runs the blocks' plain training route under
+autograd, each pattern repeat under ``torch.utils.checkpoint`` unless
+``remat == "none"``: the counterpart of the reference's ``jax.checkpoint``
+with ``nothing_saveable`` around its scan body.
 """
 from __future__ import annotations
 
-import torch
-from torch import nn
+import functools
 
-from repro_torch.models.blocks import DECODE_BLOCK_S, block_apply
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ParallelConfig
+from repro_torch.models.blocks import DECODE_BLOCK_S, block_apply, block_train
 from repro_torch.models.layers import rmsnorm
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -48,6 +59,20 @@ def tree_leaves(tree, prefix=""):
             yield path, val
 
 
+def sorted_tree_leaves(tree, prefix=""):
+    """(path, tensor) pairs of a nested dict in the order ``jax.tree``
+    flattens it: the keys of each dict sorted. Checkpoints and the
+    optimizer walk this order, so a leaf's index is the reference's (the
+    insertion order puts wq, wk, wv, wo; sorted, wk comes first)."""
+    for key in sorted(tree):
+        val = tree[key]
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(val, dict):
+            yield from sorted_tree_leaves(val, path)
+        else:
+            yield path, val
+
+
 def tree_map(fn, tree):
     """``fn`` over the leaves of nested dicts and tuples."""
     if isinstance(tree, dict):
@@ -55,6 +80,18 @@ def tree_map(fn, tree):
     if isinstance(tree, tuple):
         return tuple(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _unbind(tree):
+    """A nested dict of stacked (R, ...) leaves -> R nested dicts of their
+    slices, in layer order, from one ``unbind`` per leaf: autograd then
+    stacks the R slices' gradients into the leaf's in one node, where R
+    separate index views would each add a leaf-sized zero-padded copy."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v) for k, v in tree.items()}
+        R = len(next(iter(per_key.values())))
+        return [{k: v[r] for k, v in per_key.items()} for r in range(R)]
+    return list(tree.unbind(0))
 
 
 def _stack(trees):
@@ -68,12 +105,14 @@ def _stack(trees):
 
 
 class LM(nn.Module):
-    """Serving forward passes of one decoder over a nested param dict.
+    """Serving forward passes and the training loss of one decoder over a
+    nested param dict.
 
     ``params`` must already live on ``device`` (``bridge.init_params`` or
     ``bridge.params_from_jax`` put them there). They stay the plain nested
     dict of the JAX layout, so the bridge is a leaf-wise copy; the module
-    is not moved with ``.to()``.
+    is not moved with ``.to()``. The serving passes read per-layer views
+    made here; training updates the leaves in place, which the views see.
     """
 
     def __init__(self, cfg, params, *, device=None):
@@ -100,13 +139,15 @@ class LM(nn.Module):
         cfg = self.cfg
         emb = self.params["embed"]                     # (ncb, Vp, d)
         tokens = batch["tokens"].to(self.device).long()
+        # F.embedding: its gradient on the card sums each row's uses in a
+        # fixed order, which the bitwise preempt/resume check rests on
         if cfg.n_codebooks > 1:
             x = torch.zeros(tokens.shape[:2] + (cfg.d_model,),
                             dtype=emb.dtype, device=self.device)
             for c in range(cfg.n_codebooks):
-                x = x + emb[c][tokens[..., c]]
+                x = x + F.embedding(tokens[..., c], emb[c])
         else:
-            x = emb[0][tokens]
+            x = F.embedding(tokens, emb[0])
         if cfg.vision_stub and "patches" in batch:
             patches = batch["patches"].to(self.device, x.dtype)
             x = torch.cat([patches, x], dim=1)
@@ -118,6 +159,64 @@ class LM(nn.Module):
         if self.cfg.n_codebooks > 1:
             return torch.einsum("bsd,cdv->bscv", x, self.params["head"])
         return x @ self.params["head"][0]
+
+    # ------------------------------------------------------------- train
+    def backbone(self, x, positions, parallel: ParallelConfig):
+        """Training forward of (B, S, d) through every layer: returns (x,
+        {"moe_lb_loss", "moe_z_loss"} fp32 sums over the layers). The
+        stacked leaves are sliced inside the graph on every call."""
+        cfg = self.cfg
+
+        def repeat(x, lb, z, layer):
+            for i in range(self.period):
+                x, aux = block_train(layer[i], cfg, parallel, x, positions, i)
+                if aux:
+                    lb = lb + aux["moe_lb_loss"]
+                    z = z + aux["moe_z_loss"]
+            return x, lb, z
+
+        run = (repeat if parallel.remat == "none"
+               else functools.partial(checkpoint, repeat, use_reentrant=False))
+        per_pos = [_unbind(self.params["blocks"][f"pos{i}"])
+                   for i in range(self.period)]
+        lb = z = torch.zeros((), dtype=torch.float32, device=self.device)
+        for r in range(self.repeats):
+            x, lb, z = run(x, lb, z, [per_pos[i][r]
+                                      for i in range(self.period)])
+        return x, {"moe_lb_loss": lb, "moe_z_loss": z}
+
+    def loss(self, batch, parallel: ParallelConfig | None = None):
+        """batch: tokens, targets (B, S[, ncb]) int, mask (B, S) f32,
+        optional patches (B, Np, d), on the LM's device. Returns (loss,
+        metrics): loss = CE + 0.01 * load-balance + 1e-3 * router z loss,
+        differentiable; metrics ``ce``, ``moe_lb_loss``, ``moe_z_loss`` and
+        ``z`` (the mean squared log-normaliser), detached. The CE is the
+        masked mean over text positions (the patches' positions dropped),
+        averaged over codebooks for multi-codebook models."""
+        cfg = self.cfg
+        x = self.embed(batch)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        x, aux = self.backbone(x, positions, parallel or ParallelConfig())
+        x = rmsnorm(self.params["final_norm"], x, cfg.norm_eps)
+        if cfg.vision_stub and "patches" in batch:
+            x = x[:, batch["patches"].shape[1]:]  # loss on text positions
+        logits = self.logits(x).float()
+        targets = batch["targets"].to(self.device).long()
+        mask = batch["mask"].to(self.device, torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+        ce = lse - tgt                                    # (B, S[, ncb])
+        if cfg.n_codebooks > 1:
+            ce = ce.mean(dim=-1)
+            lse = lse.mean(dim=-1)
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce_loss = (ce * mask).sum() / denom
+        loss = (ce_loss + 0.01 * aux["moe_lb_loss"]
+                + 1e-3 * aux["moe_z_loss"])
+        metrics = {"ce": ce_loss, **aux,
+                   "z": (lse.square() * mask).sum() / denom}
+        return loss, {k: v.detach() for k, v in metrics.items()}
 
     # ------------------------------------------------------------- serve
     @torch.no_grad()

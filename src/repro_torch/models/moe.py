@@ -7,6 +7,12 @@ k-minor order, drop what overflows, run the three expert products through
 the grouped-GEMM kernel (``kernels.ops.gmm``) and add the gated outputs
 back into their tokens in a fixed order.
 
+Training runs ``moe_train``: the same routing, capacity and drops, with
+the three expert products as plain batched products (the kernel is
+forward-only) and every gather laid out so that its gradient adds each
+row once or sums in a fixed order: no row's gradient depends on the
+order in which additions land.
+
 The capacity ``C = ceil(T * k / E * capacity_factor)`` counts all ``T =
 B * S`` rows of the call, as the reference does: whether one request's
 token reaches its expert depends on its batch mates (the rows a chunked
@@ -109,4 +115,47 @@ def moe_apply(p, cfg, x, ids, wts):
     y = torch.zeros(T, d, dtype=x.dtype, device=x.device)
     for k in range(K):
         y = y + parts[:, k]
+    return y.reshape(B, S, d)
+
+
+def moe_train(p, cfg, x, ids, wts):
+    """The training route of ``moe_apply``: the same function of x, the
+    weights and the gates ``wts``, differentiable in all three.
+
+    Each token is copied once per choice (a broadcast, whose gradient sums
+    the k copies), each expert slot gathers its assignment's copy (an
+    empty slot, the spare zero row past the end), and each token gathers
+    its kept outputs (a dropped one, the spare zero row) and adds them in
+    expert order. Every gathered row but the spare one has one reader, so
+    the gradients of the gathers add each row once.
+    """
+    B, S, d = x.shape
+    T, K, E = B * S, cfg.top_k, cfg.n_experts
+    _, slot, kept = dispatch(ids, cfg)
+    C = capacity(T, cfg)
+    flat = ids.reshape(T * K) * C + slot                  # (T*K,) slot ids
+    spare = torch.full_like(flat, E * C)
+    at = torch.where(kept, flat, spare)                   # dropped -> spare
+    src = torch.full((E * C + 1,), T * K, dtype=torch.int64, device=x.device)
+    src[at] = torch.arange(T * K, device=x.device)        # spare row: junk
+    src = src[:E * C]                                     # slot -> choice
+    xk = x.reshape(T, 1, d).expand(T, K, d).reshape(T * K, d)
+    xe = torch.cat([xk, xk.new_zeros(1, d)])[src].reshape(E, C, d)
+    wk = wts.reshape(T * K).float()
+    gate = torch.cat([wk, wk.new_zeros(1)])[src].reshape(E, C, 1)
+    h = torch.bmm(xe, p["w_in"])
+    if cfg.mlp_act == "swiglu":
+        g = torch.bmm(xe, p["w_gate"])
+        h = F.silu(g.float()).to(h.dtype) * h
+    else:
+        h = torch.relu(h).square()
+    ye = torch.bmm(h, p["w_out"])
+    ye = (ye.float() * gate).to(x.dtype).reshape(E * C, d)
+    ye = torch.cat([ye, ye.new_zeros(1, d)])
+    # each token's kept outputs in table order (experts ascending)
+    order = torch.argsort(ids.reshape(T, K), dim=1)
+    at = torch.gather(at.reshape(T, K), 1, order)
+    y = torch.zeros(T, d, dtype=x.dtype, device=x.device)
+    for k in range(K):
+        y = y + ye[at[:, k]]
     return y.reshape(B, S, d)

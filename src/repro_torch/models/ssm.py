@@ -3,8 +3,10 @@
 Prefill runs the chunked SSD scan through ``kernels.ops.ssd`` (the
 ``ssd_scan`` kernel on the card), from a zero state. Decode runs the
 one-token recurrence ``ssd_decode_step`` as plain tensor ops: the JAX
-package has no kernel for it either. The projections and the depthwise
-causal conv stay plain ops, as JAX leaves them to XLA.
+package has no kernel for it either. Training runs ``ssd_chunked``, the
+same chunked dual form as plain tensor ops that autograd differentiates
+(the kernel is forward-only). The projections and the depthwise causal
+conv stay plain ops, as JAX leaves them to XLA.
 
 Caches per layer: ``({"x", "B", "C"} conv tails (B, k-1, ch) in the
 model's dtype, SSM state (B, nh, hp, ds) fp32)``. Decode writes the new
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ssd_scan_ref
 from repro_torch.models.layers import rmsnorm
 
 
@@ -43,6 +46,16 @@ def _expand_groups(t, nh: int):
     return t if ng == nh else t.repeat_interleave(nh // ng, dim=-2)
 
 
+def ssd_chunked(xh, dt, A, Bg, Cg, chunk: int, state0=None):
+    """Chunked SSD, differentiable. xh: (B, S, nh, hp); dt: (B, S, nh) f32;
+    A: (nh,) f32; Bg/Cg: (B, S, ng, ds); state0: (B, nh, hp, ds) fp32 or
+    None. Returns (y (B, S, nh, hp) in xh's dtype, final state fp32). S
+    must be below ``chunk`` or a multiple of it, else ``ValueError``."""
+    chunk = min(chunk, xh.shape[1])
+    y, state = ssd_scan_ref(xh, dt, A, Bg, Cg, chunk=chunk, state0=state0)
+    return y.to(xh.dtype), state
+
+
 def ssd_decode_step(xh, dt, A, Bg, Cg, state):
     """One token. xh: (B, nh, hp); dt: (B, nh); Bg/Cg: (B, ng, ds);
     state: (B, nh, hp, ds) fp32 -> (y (B, nh, hp) in xh's dtype, new
@@ -58,13 +71,15 @@ def ssd_decode_step(xh, dt, A, Bg, Cg, state):
     return y.to(xh.dtype), new_state
 
 
-def mamba_apply(p, cfg, x, *, cache=None):
+def mamba_apply(p, cfg, x, *, cache=None, train=False):
     """x: (B, S, d) -> (out (B, S, d), cache).
 
     Prefill (``cache is None``) scans the whole prompt and returns the
     layer's new cache; S must be below ``cfg.ssm_chunk`` or a multiple of
     it (``ssd_chunked``'s rule), else ``ValueError``. Decode (S == 1)
     takes the layer's cache, advances it one token in place and returns it.
+    ``train``: the whole sequence from a zero state through
+    ``ssd_chunked``, never a kernel; the returned cache is None.
     """
     B, S, _ = x.shape
     nh, hp, ds, ng = (cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.d_state,
@@ -83,7 +98,10 @@ def mamba_apply(p, cfg, x, *, cache=None):
     xh = xs.reshape(B, S, nh, hp)
     Bg = Bm.reshape(B, S, ng, ds)
     Cg = Cm.reshape(B, S, ng, ds)
-    if cache is None:
+    if train:
+        y, _ = ssd_chunked(xh, dt, A, Bg, Cg, cfg.ssm_chunk)
+        new_cache = None
+    elif cache is None:
         chunk = min(cfg.ssm_chunk, S)
         if S % chunk:
             raise ValueError(

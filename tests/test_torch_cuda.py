@@ -529,3 +529,139 @@ def test_moe_apply_top8_repeats_bitwise(card, dtype):
     tol = {"float32": 1e-4, "bfloat16": 5e-2}[dtype]
     torch.testing.assert_close(out.cpu().float(), want.float(), rtol=tol,
                                atol=tol)
+
+
+# ------------------------------------------------------------- training
+def _grads(lm, batch, parallel):
+    from repro_torch.models.lm import tree_leaves
+    paths, leaves = zip(*tree_leaves(lm.params))
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = lm.loss(batch, parallel)
+    return loss.item(), dict(zip(paths, torch.autograd.grad(loss, leaves)))
+
+
+def test_training_loss_and_grads_on_the_card_match_cpu(card):
+    """chip_smoke.py's train (a) on a smaller batch: a 2-layer cut of
+    musicgen-large at published widths, fp32, seq 128: loss within 1e-5
+    relative and every gradient leaf within rtol 1e-4, atol 1e-6 x max(1,
+    the leaf's largest |gradient|) of the CPU's, and no kernel runs."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.models.lm import LM, tree_map
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config("musicgen-large"), n_layers=2,
+                              dtype="float32")
+    rcfg = RunConfig(model=cfg, shape=ShapeConfig("t", "train", 128, 2))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(3),
+                         "cuda")
+    batch = synthetic_batches(rcfg, "cuda")(0)
+    before = ops.launch_counts()
+    lg, gg = _grads(LM(cfg, params, device="cuda"), batch, rcfg.parallel)
+    assert ops.launch_counts() == before
+    lc, gc = _grads(LM(cfg, tree_map(lambda t: t.cpu(), params),
+                       device="cpu"),
+                    {k: v.cpu() for k, v in batch.items()}, rcfg.parallel)
+    assert lg == pytest.approx(lc, rel=1e-5)
+    for path, ref in gc.items():
+        atol = 1e-6 * max(1.0, ref.abs().max().item())
+        torch.testing.assert_close(gg[path].cpu(), ref, rtol=1e-4, atol=atol,
+                                   msg=path)
+
+
+def test_preempt_resume_is_bitwise_on_the_card(card, tmp_path):
+    """The preemptible loop on the card (qwen2-7b smoke, bf16): a run
+    preempted before step 6 and resumed from its step-4 checkpoint gives
+    the uninterrupted run's losses bit for bit, without
+    torch.use_deterministic_algorithms."""
+    import dataclasses
+
+    from repro_torch.configs import (
+        ParallelConfig, RunConfig, ShapeConfig, get_smoke_config)
+    from repro_torch.train.loop import train_loop
+    cfg = dataclasses.replace(get_smoke_config("qwen2-7b"), n_patches=8)
+    rcfg = RunConfig(model=cfg, shape=ShapeConfig("smoke", "train", 32, 2),
+                     parallel=ParallelConfig(attn_q_chunk=16,
+                                             attn_kv_chunk=16),
+                     warmup_steps=2, total_steps=12)
+    assert not torch.are_deterministic_algorithms_enabled()
+    ref = train_loop(rcfg, ckpt_dir=str(tmp_path / "ref"), num_steps=12,
+                     ckpt_every=4, device="cuda")
+    rep = train_loop(rcfg, ckpt_dir=str(tmp_path / "pre"), num_steps=12,
+                     ckpt_every=4, fail_at={6: True}, device="cuda")
+    assert rep.restarts == 1 and len(rep.losses) == 14
+    assert rep.losses[:6] == ref.losses[:6]
+    assert rep.losses[6:] == ref.losses[4:]
+
+
+def test_kernel_wrappers_refuse_autograd_on_cuda_tensors(card):
+    """Each of the five wrappers raises when grad mode is on and an input
+    requires grad: a forward-only kernel would leave it without a
+    gradient. Under no_grad the same call launches."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    q = torch.randn(2, 4, 16, generator=card, device="cuda",
+                    requires_grad=True)
+    kv = torch.randn(2, 8, 2, 16, generator=card, device="cuda",
+                     requires_grad=True)
+    lengths = torch.full((2,), 5, dtype=torch.int32, device="cuda")
+    table = torch.arange(2, dtype=torch.int32, device="cuda")[:, None]
+    x, bc = (torch.randn(s, generator=card, device="cuda")
+             for s in ((1, 16, 2, 16), (1, 16, 1, 16)))
+    dt = torch.rand(1, 16, 2, generator=card, device="cuda")
+    A = -torch.rand(2, generator=card, device="cuda").requires_grad_()
+    w = torch.randn(2, 16, 8, generator=card, device="cuda",
+                    requires_grad=True)
+    calls = [lambda: flash_attention(q, q, q),
+             lambda: decode_attention(q, kv, kv, lengths, block_s=8),
+             lambda: paged_decode_attention(q, kv, kv, table, lengths),
+             lambda: moe_gmm(torch.randn(2, 3, 16, device="cuda"), w),
+             lambda: ssd_scan(x, dt, A, bc, bc, chunk=16)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="forward-only"):
+            call()
+    before = ops.launch_counts()
+    with torch.no_grad():
+        for call in calls:
+            call()
+    torch.cuda.synchronize()
+    assert all(v == before[k] + 1 for k, v in ops.launch_counts().items())
+
+
+def test_one_bf16_train_step_of_a_two_layer_musicgen(card):
+    """One train step (2 microbatches, remat per layer) of musicgen-large
+    at published widths cut to 2 layers, bf16, seq 512: finite loss,
+    grad norm and updated params, and no kernel runs."""
+    import dataclasses
+    import math
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import (
+        ParallelConfig, RunConfig, ShapeConfig, get_config)
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.models.lm import LM, tree_leaves
+    from repro_torch.train.train_step import build_train_step
+    cfg = dataclasses.replace(get_config("musicgen-large"), n_layers=2)
+    rcfg = RunConfig(model=cfg, shape=ShapeConfig("t", "train", 512, 4),
+                     parallel=ParallelConfig(microbatches=2))
+    lm = LM(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda"), device="cuda")
+    step_fn, opt = build_train_step(lm, rcfg, "cuda")
+    before = ops.launch_counts()
+    state, met = step_fn(opt.init(lm.params),
+                         synthetic_batches(rcfg, "cuda")(0))
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == before
+    assert state.step == 1
+    for k in ("loss", "ce", "z", "grad_norm", "lr"):
+        assert math.isfinite(met[k].item()), k
+    assert met["grad_norm"].item() > 0
+    for path, t in tree_leaves(state.params):
+        assert torch.isfinite(t).all(), path

@@ -2,12 +2,15 @@
 
 - No module of ``src/repro_torch``, not ``chip_smoke.py`` and not
   ``benchmarks/torch_serve_fleet.py`` imports jax or anything of
-  ``repro``; importing every port module loads neither.
+  ``repro``; importing every port module loads neither. Nor do they
+  import ``msgpack``, which the card is not known to have: the
+  checkpoints pack their manifest themselves.
 - Entry points run on the card unless the caller passes ``device="cpu"``:
   without a card they raise instead of quietly using the CPU.
 - The kernel builder raises without nvcc; the kernel wrappers raise on
   CPU tensors; on CPU tensors no launch is ever counted.
-- The copied configs equal the JAX package's, field for field.
+- The copied configs and shape cells equal the JAX package's, field for
+  field.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import numpy as np  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.bridge import init_params, params_from_jax  # noqa: E402
+from repro_torch.data.synthetic import synthetic_batches  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -36,7 +40,10 @@ from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention)
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
+from repro_torch.train.loop import train_loop  # noqa: E402
+from repro_torch.train.train_step import build_train_step  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -61,7 +68,8 @@ def _imported(path: Path):
 def test_port_imports_neither_jax_nor_repro(path):
     for name in _imported(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {name}"
+        assert top not in ("jax", "jaxlib", "repro", "msgpack"), \
+            f"{path}: {name}"
 
 
 def test_every_port_module_imports_without_jax_or_repro():
@@ -96,6 +104,18 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(lm, max_batch=2, max_len=16)
     Engine(lm, max_batch=2, max_len=16, device="cpu")
+    rcfg = tconfigs.RunConfig(model=cfg, shape=tconfigs.ShapeConfig(
+        "smoke", "train", 16, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthetic_batches(rcfg)
+    synthetic_batches(rcfg, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_train_step(lm, rcfg)
+    build_train_step(lm, rcfg, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_loop(rcfg, ckpt_dir="unused", num_steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "qwen2-7b", "--steps", "1"])
 
 
 def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
@@ -168,3 +188,30 @@ def test_copied_configs_equal_jax_configs(arch):
                                      j.pattern_period, j.param_count())
     assert dataclasses.asdict(tconfigs.ParallelConfig()) == \
         dataclasses.asdict(jconfigs.ParallelConfig())
+
+
+def test_copied_shapes_and_run_config_equal_jax():
+    """``ShapeConfig``, ``SHAPES`` and ``RunConfig`` field for field:
+    names, types, defaults and the four assigned cells."""
+    from repro.configs import base as jbase
+    from repro_torch.configs import base as tbase
+    assert {k: dataclasses.asdict(v) for k, v in tconfigs.SHAPES.items()} \
+        == {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
+    for name in ("ShapeConfig", "RunConfig", "ParallelConfig"):
+        t, j = getattr(tbase, name), getattr(jbase, name)
+        tf = [(f.name, str(f.type), f.default, f.default_factory)
+              for f in dataclasses.fields(t)]
+        jf = [(f.name, str(f.type), f.default, f.default_factory)
+              for f in dataclasses.fields(j)]
+        # default factories are the package's own ParallelConfig
+        norm = [[(n, ty, d, None if fac is dataclasses.MISSING
+                  else fac.__name__) for n, ty, d, fac in fs]
+                for fs in (tf, jf)]
+        assert norm[0] == norm[1], name
+    for arch in ARCHS:
+        t = tconfigs.RunConfig(model=tconfigs.get_config(arch),
+                               shape=tconfigs.SHAPES["train_4k"])
+        j = jconfigs.RunConfig(model=jconfigs.get_config(arch),
+                               shape=jconfigs.SHAPES["train_4k"])
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert t.shape.tokens == j.shape.tokens
