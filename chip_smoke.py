@@ -81,7 +81,8 @@ train. the HTC training job (``repro_torch.train``), which reaches no
    FLOPs as a share of the bf16 peak per step, the peak device memory,
    and one microbatch under torch.profiler (busy share, top items); (d)
    jamba's smoke config (Mamba2, attention and MoE in one stack) in fp32,
-   card against CPU as in (a).
+   card against CPU as in (a). (a) and (d) each end with a control: the
+   card's gradients with TF32 products, which their bound must reject.
 
 The last three lines are the ``nvidia-smi`` name and power limit, a JSON
 object with one entry per kernel, and ``{"ok": true, "device": ...}``.
@@ -115,10 +116,13 @@ REF_TOL = 1e-3                # fp32 logits, card vs CPU (cuBLAS sum order)
 # fp32 training, card vs CPU, as tests/test_torch_train_parity.py holds the
 # port against JAX: loss within 1e-5 relative; each gradient leaf within
 # rtol 1e-4 and atol ATOL x max(1, the leaf's largest |gradient|), ATOL
-# 1e-6, or 1e-4 for a stack of Mamba2 layers (each amplifies the fp32
-# rounding of the other side's sum order)
+# 1e-6, or 1e-4 for a deep stack of Mamba2 layers, which amplifies fp32
+# rounding with depth (benchmarks/torch_train_tolerance.py measures it)
 TRAIN_LOSS_RTOL, TRAIN_RTOL = 1e-5, 1e-4
 TRAIN_ATOL = {"dense": 1e-6, "deep ssm": 1e-4}
+# the control: the card's gradients with TF32 products must exceed the
+# bound by this much (the bound must see a lower precision)
+TF32_CONTROL_MIN = 2.0
 SPIN_CYCLES = 1_000_000       # ~0.5 ms of device spin ahead of a timed call
 ARCH = "musicgen-large"
 # (arch, layers kept or None for all, smoke config, why)
@@ -1396,9 +1400,31 @@ def loss_and_grads(lm, batch, parallel):
     return loss.item(), metrics, dict(zip(paths, grads))
 
 
+def grad_errors(card, cpu, kind):
+    """(worst |card - cpu|, worst (err / bound), its leaf, {leaf: (worst
+    err, ratio, scale)}) of two {path: gradient} maps."""
+    worst_abs, worst_ratio, worst_leaf, per_leaf = 0.0, 0.0, "", {}
+    for path, ref in cpu.items():
+        out = card[path].cpu()
+        scale = max(1.0, ref.abs().max().item())
+        bound = TRAIN_RTOL * ref.abs() + TRAIN_ATOL[kind] * scale
+        err = (out - ref).abs()
+        check(bool(torch.isfinite(out).all()), f"{path}: gradient not "
+              "finite on the card")
+        ratio = (err / bound).max().item()
+        per_leaf[path] = (err.max().item(), ratio, scale)
+        if ratio > worst_ratio:
+            worst_ratio, worst_leaf = ratio, path
+        worst_abs = max(worst_abs, err.max().item())
+    return worst_abs, worst_ratio, worst_leaf, per_leaf
+
+
 def train_card_vs_cpu(label, cfg, rcfg, kind):
     """Loss and every gradient leaf on the card against the CPU's plain
-    path, on the same weights and batch, fp32; prints the worst errors."""
+    path, on the same weights and batch, fp32; prints the worst errors.
+    Then the control: the card's gradients again with TF32 products, a
+    lower precision, which the same bound must reject (worst err / bound
+    above TF32_CONTROL_MIN)."""
     from repro_torch.bridge import init_params
     from repro_torch.data.synthetic import synthetic_batches
     from repro_torch.models.lm import LM, tree_map
@@ -1421,21 +1447,11 @@ def train_card_vs_cpu(label, cfg, rcfg, kind):
     check(math.isfinite(lg) and loss_err <= TRAIN_LOSS_RTOL,
           f"train {label}: loss card {lg!r} vs CPU {lc!r}, rel err "
           f"{loss_err:.3e} > {TRAIN_LOSS_RTOL}")
-    worst_abs, worst_ratio, worst_leaf = 0.0, 0.0, ""
-    for path, ref in gc_.items():
-        out = gg[path].cpu()
-        scale = max(1.0, ref.abs().max().item())
-        bound = TRAIN_RTOL * ref.abs() + TRAIN_ATOL[kind] * scale
-        err = (out - ref).abs()
-        check(bool(torch.isfinite(out).all()), f"train {label}: {path} "
-              "gradient not finite on the card")
-        ratio = (err / bound).max().item()
-        if ratio > worst_ratio:
-            worst_ratio, worst_leaf = ratio, path
-        worst_abs = max(worst_abs, err.max().item())
+    worst_abs, worst_ratio, worst_leaf, per_leaf = grad_errors(gg, gc_, kind)
+    for path, (err, ratio, scale) in per_leaf.items():
         check(ratio <= 1.0, f"train {label}: gradient {path} off by "
-              f"{err.max().item():.3e}, {ratio:.2f} x its bound (rtol "
-              f"{TRAIN_RTOL}, atol {TRAIN_ATOL[kind]} x {scale:.3g})")
+              f"{err:.3e}, {ratio:.2f} x its bound (rtol {TRAIN_RTOL}, "
+              f"atol {TRAIN_ATOL[kind]} x {scale:.3g})")
     phase("train", label, f"{cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, fp32, seq {rcfg.shape.seq_len}, batch "
           f"{rcfg.shape.global_batch}: loss card {lg:.6f} vs CPU {lc:.6f} "
@@ -1446,6 +1462,21 @@ def train_card_vs_cpu(label, cfg, rcfg, kind):
           f"worst err / bound {worst_ratio:.3f} ({worst_leaf}; rtol "
           f"{TRAIN_RTOL}, atol {TRAIN_ATOL[kind]} x max(1, leaf max)); "
           f"card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s")
+    del gg
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        lt, _, gt = loss_and_grads(LM(cfg, params, device="cuda"), batch,
+                                   rcfg.parallel)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    t_abs, t_ratio, t_leaf, _ = grad_errors(gt, gc_, kind)
+    phase("train", label, f"control, TF32 products on the card: loss rel "
+          f"err {abs(lt - lc) / abs(lc):.3e}; worst abs err {t_abs:.3e}, "
+          f"worst err / bound {t_ratio:.3f} ({t_leaf}), must exceed "
+          f"{TF32_CONTROL_MIN}")
+    check(t_ratio > TF32_CONTROL_MIN, f"train {label}: with TF32 on, the "
+          f"gradients land at {t_ratio:.3f} of the bound: the bound cannot "
+          "tell TF32 from fp32")
 
 
 def musicgen_cut(dtype):
@@ -1528,7 +1559,7 @@ def train_full(smi):
     t0 = time.perf_counter()
     lm = LM(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(
         0), "cuda"), device="cuda")
-    step_fn, opt = build_train_step(lm, rcfg, "cuda")
+    step_fn, opt = build_train_step(lm, rcfg)
     state = opt.init(lm.params)
     batches = synthetic_batches(rcfg, "cuda")
     torch.cuda.synchronize()

@@ -7,9 +7,7 @@ returns fp32 as the kernel does. ``kernels/ops.py`` sends CPU tensors
 here; ``chip_smoke.py`` holds each CUDA kernel against these on the card.
 They materialize whole intermediates (the full score matrix, a gathered
 copy of each row's pages, fp32 copies of the expert weights): they are
-references, never the card's serving path. ``ssd_scan_ref``, which
-materializes only one chunk's scores at a time, is also the training
-route's Mamba2 scan (``models.ssm.ssd_chunked``), on any device.
+references, never the card's path.
 """
 from __future__ import annotations
 
@@ -93,27 +91,14 @@ def moe_gmm_ref(x, w, counts=None):
     return out.to(x.dtype)
 
 
-def expand_groups(t, nh: int):
-    """(..., ng, ds) -> (..., nh, ds), head h reading group h // (nh / ng).
-    A broadcast and a copy, not an index: autograd sums the copies back
-    in a fixed order, where an index's backward adds with atomics."""
-    ng, ds = t.shape[-2:]
-    if ng == nh:
-        return t
-    return t[..., None, :].expand(*t.shape[:-1], nh // ng, ds).reshape(
-        *t.shape[:-2], nh, ds)
-
-
-def ssd_scan_ref(x, dt, A, Bg, Cg, *, chunk: int, state0=None):
-    """Mamba2 SSD forward in the chunked dual form of
-    ``repro.models.ssm.ssd_chunked``, from ``state0`` (None: zeros, the
-    kernel's case).
+def ssd_scan_ref(x, dt, A, Bg, Cg, *, chunk: int):
+    """Mamba2 SSD forward from a zero state, in the chunked dual form of
+    ``repro.models.ssm.ssd_chunked``.
 
     x: (B, S, nh, hp); dt: (B, S, nh) f32; A: (nh,) f32; Bg/Cg: (B, S, ng,
-    ds), head h reading group h // (nh / ng); state0: (B, nh, hp, ds) or
-    None. S must be a multiple of ``chunk``. Returns (y (B, S, nh, hp)
-    fp32, final state (B, nh, hp, ds) fp32), like the Pallas kernel.
-    Differentiable: the training route runs it under autograd.
+    ds), head h reading group h // (nh / ng). S must be a multiple of
+    ``chunk``. Returns (y (B, S, nh, hp) fp32, final state (B, nh, hp, ds)
+    fp32), like the Pallas kernel.
     """
     B, S, nh, hp = x.shape
     ng, ds = Bg.shape[-2:]
@@ -121,26 +106,24 @@ def ssd_scan_ref(x, dt, A, Bg, Cg, *, chunk: int, state0=None):
         raise ValueError(f"ssd_scan_ref: S={S} must be a multiple of chunk="
                          f"{chunk} and ng={ng} must divide nh={nh}")
     nc, f32 = S // chunk, torch.float32
-    Bh = expand_groups(Bg.to(f32), nh).reshape(B, nc, chunk, nh, ds)
-    Ch = expand_groups(Cg.to(f32), nh).reshape(B, nc, chunk, nh, ds)
+    Bh = Bg.to(f32).repeat_interleave(nh // ng, dim=2).reshape(
+        B, nc, chunk, nh, ds)
+    Ch = Cg.to(f32).repeat_interleave(nh // ng, dim=2).reshape(
+        B, nc, chunk, nh, ds)
     xc = x.to(f32).reshape(B, nc, chunk, nh, hp)
     dtc = dt.to(f32).reshape(B, nc, chunk, nh)
     A = A.to(f32)
     causal = (torch.arange(chunk, device=x.device)[:, None]
               >= torch.arange(chunk, device=x.device)[None, :])
-    state = (torch.zeros(B, nh, hp, ds, dtype=f32, device=x.device)
-             if state0 is None else state0)
+    state = torch.zeros(B, nh, hp, ds, dtype=f32, device=x.device)
     ys = []
     for c in range(nc):
         xb, dtb, Bb, Cb = xc[:, c], dtc[:, c], Bh[:, c], Ch[:, c]
         cs = torch.cumsum(dtb * A, dim=1)                     # (B, Q, nh)
-        # above the diagonal cs_i - cs_j > 0 may overflow; the reference
-        # discards it after the exp, here it is -inf before: the same
-        # values where the mask holds, exact zeros (and zero gradients,
-        # never inf * 0) where it does not
-        L = torch.exp(torch.where(causal[None, :, :, None],
-                                  cs[:, :, None, :] - cs[:, None, :, :],
-                                  -torch.inf))
+        # exp only under the mask's where: above the diagonal cs_i - cs_j
+        # > 0 and may overflow, and is then discarded (as in JAX)
+        L = torch.where(causal[None, :, :, None],
+                        torch.exp(cs[:, :, None, :] - cs[:, None, :, :]), 0.0)
         scores = torch.einsum("bihs,bjhs->bijh", Cb, Bb) * L
         xdt = xb * dtb[..., None]
         y = torch.einsum("bijh,bjhp->bihp", scores, xdt)

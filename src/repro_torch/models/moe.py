@@ -77,6 +77,21 @@ def dispatch(ids, cfg):
     return tok.reshape(E, C), slot, kept
 
 
+def _experts(p, cfg, xe, gate, product):
+    """The expert MLP of the dispatched rows xe (E, C, d), gated by gate
+    (E, C, 1) f32: ``product(a, w)`` computes each of the three expert
+    products (the kernel when serving, a plain product when training).
+    Returns (E, C, d) in xe's dtype."""
+    h = product(xe, p["w_in"])
+    if cfg.mlp_act == "swiglu":
+        g = product(xe, p["w_gate"])
+        h = F.silu(g.float()).to(h.dtype) * h
+    else:
+        h = torch.relu(h).square()
+    ye = product(h, p["w_out"])
+    return (ye.float() * gate).to(xe.dtype)
+
+
 def moe_apply(p, cfg, x, ids, wts):
     """x: (B, S, d); ids, wts: (B, S, K) from ``route``. Returns (B, S, d)
     in x's dtype: the gated sum of each token's kept experts."""
@@ -94,14 +109,8 @@ def moe_apply(p, cfg, x, ids, wts):
     # which rows the products need (the rest are zero: silu(0) * 0 and
     # relu(0)^2 keep h's zero too), so an empty expert reads no weight
     counts = valid.sum(dim=1, dtype=torch.int32)           # (E,), no sync
-    h = ops.gmm(xe, p["w_in"], counts)
-    if cfg.mlp_act == "swiglu":
-        g = ops.gmm(xe, p["w_gate"], counts)
-        h = F.silu(g.float()).to(h.dtype) * h
-    else:
-        h = torch.relu(h).square()
-    ye = ops.gmm(h, p["w_out"], counts)
-    ye = (ye.float() * gate.reshape(E, C, 1)).to(x.dtype)
+    ye = _experts(p, cfg, xe, gate.reshape(E, C, 1),
+                  lambda a, w: ops.gmm(a, w, counts))
     # Combine: each token's kept outputs, added one at a time in x's dtype
     # in table order (experts ascending), the order in which the
     # reference's scatter-add applies them. A fixed order: index_add_ on
@@ -143,14 +152,7 @@ def moe_train(p, cfg, x, ids, wts):
     xe = torch.cat([xk, xk.new_zeros(1, d)])[src].reshape(E, C, d)
     wk = wts.reshape(T * K).float()
     gate = torch.cat([wk, wk.new_zeros(1)])[src].reshape(E, C, 1)
-    h = torch.bmm(xe, p["w_in"])
-    if cfg.mlp_act == "swiglu":
-        g = torch.bmm(xe, p["w_gate"])
-        h = F.silu(g.float()).to(h.dtype) * h
-    else:
-        h = torch.relu(h).square()
-    ye = torch.bmm(h, p["w_out"])
-    ye = (ye.float() * gate).to(x.dtype).reshape(E * C, d)
+    ye = _experts(p, cfg, xe, gate, torch.bmm).reshape(E * C, d)
     ye = torch.cat([ye, ye.new_zeros(1, d)])
     # each token's kept outputs in table order (experts ascending)
     order = torch.argsort(ids.reshape(T, K), dim=1)

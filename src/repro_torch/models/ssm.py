@@ -18,7 +18,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import ssd_scan_ref
 from repro_torch.models.layers import rmsnorm
 
 
@@ -41,18 +40,61 @@ def causal_conv(x, w, prev=None):
 
 
 def _expand_groups(t, nh: int):
-    """(B, ..., ng, ds) -> (B, ..., nh, ds) by repeating groups."""
-    ng = t.shape[-2]
-    return t if ng == nh else t.repeat_interleave(nh // ng, dim=-2)
+    """(..., ng, ds) -> (..., nh, ds), head h reading group h // (nh / ng).
+    A broadcast and a copy, not an index: autograd sums the copies back
+    in a fixed order, where an index's backward adds with atomics."""
+    ng, ds = t.shape[-2:]
+    if ng == nh:
+        return t
+    return t[..., None, :].expand(*t.shape[:-1], nh // ng, ds).reshape(
+        *t.shape[:-2], nh, ds)
 
 
 def ssd_chunked(xh, dt, A, Bg, Cg, chunk: int, state0=None):
-    """Chunked SSD, differentiable. xh: (B, S, nh, hp); dt: (B, S, nh) f32;
-    A: (nh,) f32; Bg/Cg: (B, S, ng, ds); state0: (B, nh, hp, ds) fp32 or
-    None. Returns (y (B, S, nh, hp) in xh's dtype, final state fp32). S
-    must be below ``chunk`` or a multiple of it, else ``ValueError``."""
-    chunk = min(chunk, xh.shape[1])
-    y, state = ssd_scan_ref(xh, dt, A, Bg, Cg, chunk=chunk, state0=state0)
+    """Chunked SSD (``repro.models.ssm.ssd_chunked``), differentiable.
+
+    xh: (B, S, nh, hp); dt: (B, S, nh) f32; A: (nh,) f32; Bg/Cg: (B, S,
+    ng, ds); state0: (B, nh, hp, ds) fp32 or None (zeros). Returns (y (B,
+    S, nh, hp) in xh's dtype, final state fp32). S must be below ``chunk``
+    or a multiple of it, else ``ValueError``.
+    """
+    B, S, nh, hp = xh.shape
+    ng, ds = Bg.shape[-2:]
+    chunk = min(chunk, S)
+    if S % chunk or nh % ng:
+        raise ValueError(f"ssd_chunked: S={S} must be below or a multiple "
+                         f"of chunk={chunk} and ng={ng} must divide nh={nh}")
+    nc, f32 = S // chunk, torch.float32
+    Bh = _expand_groups(Bg.to(f32), nh).reshape(B, nc, chunk, nh, ds)
+    Ch = _expand_groups(Cg.to(f32), nh).reshape(B, nc, chunk, nh, ds)
+    xc = xh.to(f32).reshape(B, nc, chunk, nh, hp)
+    dtc = dt.to(f32).reshape(B, nc, chunk, nh)
+    A = A.to(f32)
+    causal = (torch.arange(chunk, device=xh.device)[:, None]
+              >= torch.arange(chunk, device=xh.device)[None, :])
+    state = (torch.zeros(B, nh, hp, ds, dtype=f32, device=xh.device)
+             if state0 is None else state0)
+    ys = []
+    for c in range(nc):
+        xb, dtb, Bb, Cb = xc[:, c], dtc[:, c], Bh[:, c], Ch[:, c]
+        cs = torch.cumsum(dtb * A, dim=1)                     # (B, Q, nh)
+        # above the diagonal cs_i - cs_j > 0 may overflow; the reference
+        # discards it after the exp, here it is -inf before: the same
+        # values where the mask holds, exact zeros (and zero gradients,
+        # never inf * 0) where it does not
+        L = torch.exp(torch.where(causal[None, :, :, None],
+                                  cs[:, :, None, :] - cs[:, None, :, :],
+                                  -torch.inf))
+        scores = torch.einsum("bihs,bjhs->bijh", Cb, Bb) * L
+        xdt = xb * dtb[..., None]
+        y = torch.einsum("bijh,bjhp->bihp", scores, xdt)
+        y = y + torch.einsum("bihs,bhps->bihp", Cb, state) * torch.exp(
+            cs)[..., None]
+        decay_out = torch.exp(cs[:, -1:, :] - cs)
+        state = state * torch.exp(cs[:, -1])[:, :, None, None] + torch.einsum(
+            "bjhs,bjhp->bhps", Bb * decay_out[..., None], xdt)
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(B, S, nh, hp)
     return y.to(xh.dtype), state
 
 

@@ -91,7 +91,7 @@ def _run_attempt(rcfg, ckpt_dir, num_steps, ckpt_every, device, batch_fn,
         state, start = ckpt.restore(ckpt_dir, _like(rcfg),
                                     device=device)
     lm = LM(rcfg.model, state.params, device=device)
-    step_fn, _ = build_train_step(lm, rcfg, device)
+    step_fn, _ = build_train_step(lm, rcfg)
 
     for step in range(start, num_steps):
         if fail_at.pop(step, None):

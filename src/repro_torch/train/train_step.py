@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.lm import LM, resolve_device, tree_leaves
+from repro_torch.models.lm import LM, tree_leaves
 from repro_torch.train.optimizer import AdamW, TrainState
 
 
@@ -36,17 +36,14 @@ def _unflatten(paths, values):
     return out
 
 
-def build_train_step(lm: LM, rcfg, device=None):
+def build_train_step(lm: LM, rcfg):
     """Returns (train_step, opt); train_step(state, batch) -> (state,
     metrics) updates ``state`` (whose params must be ``lm.params``) in
-    place. ``device`` must be the LM's; None means the card.
+    place, on the LM's device.
 
     Sets ``requires_grad`` on every param leaf; the serving passes run
     under ``torch.no_grad`` and are unaffected.
     """
-    device = resolve_device(device)
-    if lm.device != device:
-        raise ValueError(f"LM lives on {lm.device}, train step on {device}")
     if rcfg.parallel.grad_compress_pod:
         raise ValueError("grad_compress_pod compresses a cross-pod gradient "
                          "all-reduce; the port trains on one card")
@@ -75,7 +72,7 @@ def build_train_step(lm: LM, rcfg, device=None):
             size = rows // n_micro
             grads = [torch.zeros(t.shape, dtype=torch.bfloat16,
                                  device=t.device) for t in leaves]
-            loss = torch.zeros((), dtype=torch.float32, device=device)
+            loss = torch.zeros((), dtype=torch.float32, device=lm.device)
             for i in range(n_micro):
                 mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
                 mloss, metrics, g = grad_fn(mb)

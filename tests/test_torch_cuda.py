@@ -653,7 +653,7 @@ def test_one_bf16_train_step_of_a_two_layer_musicgen(card):
                      parallel=ParallelConfig(microbatches=2))
     lm = LM(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(
         0), "cuda"), device="cuda")
-    step_fn, opt = build_train_step(lm, rcfg, "cuda")
+    step_fn, opt = build_train_step(lm, rcfg)
     before = ops.launch_counts()
     state, met = step_fn(opt.init(lm.params),
                          synthetic_batches(rcfg, "cuda")(0))

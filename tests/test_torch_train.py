@@ -294,7 +294,7 @@ def test_serving_sees_the_trained_weights():
     see it, so its prefill equals a fresh LM's on the updated weights."""
     rcfg = smoke_run("qwen2-7b")
     lm = _lm(rcfg)
-    step_fn, opt = build_train_step(lm, rcfg, "cpu")
+    step_fn, opt = build_train_step(lm, rcfg)
     toks = {"tokens": torch.arange(1, 9, dtype=torch.int32)[None]}
     before, _ = lm.prefill(toks)
     state, _ = step_fn(opt.init(lm.params), synthetic_batches(rcfg,
@@ -311,9 +311,9 @@ def test_train_step_refuses_pod_compression_and_foreign_state():
         SMOKE_PARALLEL, grad_compress_pod=True))
     lm = _lm(rcfg)
     with pytest.raises(ValueError, match="one card"):
-        build_train_step(lm, rcfg, "cpu")
+        build_train_step(lm, rcfg)
     rcfg = smoke_run("qwen2-7b")
-    step_fn, opt = build_train_step(lm, rcfg, "cpu")
+    step_fn, opt = build_train_step(lm, rcfg)
     other = tree_map(lambda t: t.detach().clone(), lm.params)
     with pytest.raises(ValueError, match="not the LM's"):
         step_fn(opt.init(other), synthetic_batches(rcfg, "cpu")(0))
@@ -330,7 +330,7 @@ def test_microbatch_accumulation_matches_full_batch():
     outs = []
     for rcfg in (rcfg1, rcfg2):
         lm = _lm(rcfg)
-        step_fn, opt = build_train_step(lm, rcfg, "cpu")
+        step_fn, opt = build_train_step(lm, rcfg)
         state, metrics = step_fn(opt.init(lm.params), batch)
         outs.append((float(metrics["loss"]), state.params))
     assert outs[0][0] == pytest.approx(outs[1][0], rel=2e-2)
