@@ -84,6 +84,18 @@ train. the HTC training job (``repro_torch.train``), which reaches no
    card against CPU as in (a). (a) and (d) each end with a control: the
    card's gradients with TF32 products, which their bound must reject.
 
+elastic. the live ``ElasticController`` (``repro_torch.core.controller``)
+   on mix D of ``benchmarks/torch_elastic.py``: DSP policies grant,
+   grow, shrink, preempt and destroy two training jobs of the (b) cut
+   (2 layers of musicgen-large at published widths, bf16, seq 512, batch
+   2) on a pool of 4 slots of the card. Its decisions must equal a stub
+   segment's, each job's losses a straight ``train_loop`` run's bit for
+   bit (train-0 replays step 3 after its preemption), nothing may stay
+   allocated after the destroy, and no kernel may launch; it prints each
+   segment's entry (init or restore), steps and save times, each job's
+   share of wall time in checkpoint I/O and tokens/s inside the steps,
+   the node-ticks billed, the peak device memory and the phase's wall.
+
 The last three lines are the ``nvidia-smi`` name and power limit, a JSON
 object with one entry per kernel, and ``{"ok": true, "device": ...}``.
 """
@@ -1660,6 +1672,92 @@ def phase_train(smi):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+def phase_elastic(smi):
+    """Mix D on the live controller over the (b) cut: the elastic phase
+    of the module docstring. Every launch counter is set to 0 just before
+    and read just after."""
+    import shutil
+    import torch_elastic as te
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.kernels import ops
+    cfg = musicgen_cut("bfloat16")
+    rcfg = RunConfig(model=cfg, shape=ShapeConfig("train_cut", "train", 512,
+                                                  2),
+                     learning_rate=3e-3, warmup_steps=2, total_steps=12)
+    n_params = cfg.param_count()
+    # bf16 params, bf16 m and v
+    ckpt_gib = n_params * 3 * 2 / 2**30
+    # at most 3 kept per job (6), the straight run's 1, one being written
+    need_gib = 8 * ckpt_gib
+    tmp = tempfile.gettempdir()
+    disk = shutil.disk_usage(tmp)
+    phase("elastic", "setup", f"{cfg.name}: {cfg.n_layers} of 48 layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, {cfg.n_codebooks} codebooks of "
+          f"{cfg.vocab_size}, bf16, {n_params / 1e6:.1f} M params; seq 512, "
+          f"batch 2, lr 3e-3, warmup 2; a checkpoint {ckpt_gib:.2f} GiB; "
+          f"{tmp}: {disk.free / 2**30:.1f} GiB free of "
+          f"{disk.total / 2**30:.1f}")
+    check(disk.free / 2**30 > need_gib, f"elastic: {tmp} has "
+          f"{disk.free / 2**30:.1f} GiB free, the mix needs about "
+          f"{need_gib:.1f} GiB of checkpoints: the card's disk is short")
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        row = te.elastic_row(rcfg, "cuda", d)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for seg in row["segments"]:
+        phase("elastic", "segment", f"tick {seg['tick']} {seg['job']} on "
+              f"{seg['alloc']} slot(s): steps {seg['first']}-"
+              f"{seg['first'] + seg['steps'] - 1}"
+              + (" then preempted" if seg["preempted"] else "")
+              + f"; {'init' if seg['fresh'] else 'restore'} "
+              f"{seg['entry_s']:.3f} s, {seg['steps']} steps "
+              f"{seg['steps_s']:.3f} s, save "
+              + ("none" if seg["save_s"] is None else f"{seg['save_s']:.3f} s")
+              + f", wall {seg['wall_s']:.3f} s; {smi}")
+    dec, stub = row["decisions"], row["stub"]
+    check(dec == stub, f"elastic: live decisions {dec} differ from the "
+          f"stub segment's {stub}")
+    for name, job in row["jobs"].items():
+        check(job["losses"] == row["expected"][name], f"elastic: {name}'s "
+              f"losses {job['losses']} differ from the straight run's "
+              f"{row['expected'][name]}")
+    check(dec["allocated"] == 0, f"elastic: {dec['allocated']} nodes "
+          "allocated after the destroy")
+    check(not any(counts.values()), f"elastic: kernel launches {counts}: "
+          "the training route must reach no kernel")
+    resident = [seg["resident"] - before for seg in row["segments"]]
+    # a state that outlived its segment would hold a checkpoint's worth
+    check(max(resident) < 0.5 * ckpt_gib * 2**30, f"elastic: "
+          f"{max(resident) / 2**30:.3f} GiB still allocated after a "
+          "segment: a segment's state outlives it")
+    phase("elastic", "decisions", f"provision deltas {dec['deltas']}, "
+          f"finish order {dec['order']}, (steps, resizes, restarts) "
+          f"{dec['jobs']}, {dec['ticks']} ticks, {dec['allocated']} nodes "
+          f"after the destroy: equal to the stub segment's; billed "
+          f"{row['node_ticks']:.0f} node-lease units over the ticks, "
+          f"{row['adjusts']} node adjustments")
+    for name, job in row["jobs"].items():
+        phase("elastic", "job", f"{name}: {job['steps']} steps in "
+              f"{job['segments']} segments, wall {job['wall_s']:.3f} s, "
+              f"checkpoint I/O {job['io_s']:.3f} s = {job['io_share']:.1%} "
+              f"of it; {job['tokens_per_s']:.1f} tokens/s inside the steps;"
+              f" losses equal to the straight run's bit for bit: "
+              + ", ".join(f"{x:.4f}" for x in job["losses"]) + f"; {smi}")
+    phase("elastic", "done", f"straight run {row['straight_s']:.3f} s, live "
+          f"run {row['live_s']:.3f} s; peak device memory {peak:.2f} GiB "
+          f"(max_memory_allocated), {min(resident) / 2**20:.1f}-"
+          f"{max(resident) / 2**20:.1f} MiB left allocated after a segment "
+          f"(a state is {ckpt_gib * 1024:.0f} MiB); launches {counts}; "
+          f"phase {wall:.1f} "
+          f"s; {smi}")
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -1701,6 +1799,8 @@ def main():
                        moe_counts_by_arch["arctic-480b"], smi, per_call)
     free_device_memory()
     phase_train(smi)
+    free_device_memory()
+    phase_elastic(smi)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@
                  the emulator and the live controller through Clock/driver
                  protocols
 - ``registry``   pluggable System registry: usage models register by name
+- ``controller`` the live driver: DSP decisions on real elastic PyTorch jobs
 """
 from repro_torch.core.lifecycle import LifecycleService, TREState  # noqa: F401
 from repro_torch.core.policy import MgmtPolicy, PolicyEngine  # noqa: F401

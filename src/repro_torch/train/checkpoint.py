@@ -267,10 +267,16 @@ def restore(path: str, like: TrainState, step: int | None = None,
     return _state_from_names(like, out), step
 
 
+def _rebuild(tree, prefix, flat):
+    # module level, not a closure: a recursive closure over ``flat`` is a
+    # reference cycle, which would keep every restored tensor alive until
+    # the garbage collector runs
+    return {k: _rebuild(v, f"{prefix}/{k}", flat) if isinstance(v, dict)
+            else flat[f"{prefix}/{k}"] for k, v in tree.items()}
+
+
 def _state_from_names(like: TrainState, flat: dict) -> TrainState:
-    def rebuild(tree, prefix):
-        return {k: rebuild(v, f"{prefix}/{k}") if isinstance(v, dict)
-                else flat[f"{prefix}/{k}"] for k, v in tree.items()}
     return TrainState(step=flat["step"],
-                      params=rebuild(like.params, "params"),
-                      m=rebuild(like.m, "m"), v=rebuild(like.v, "v"))
+                      params=_rebuild(like.params, "params", flat),
+                      m=_rebuild(like.m, "m", flat),
+                      v=_rebuild(like.v, "v", flat))

@@ -77,21 +77,30 @@ def _like(rcfg) -> TrainState:
     return TrainState(0, params, moments, moments)
 
 
-def _run_attempt(rcfg, ckpt_dir, num_steps, ckpt_every, device, batch_fn,
-                 fail_at, resize_at, report):
-    opt = make_optimizer(rcfg)
-    if batch_fn is None:
-        batch_fn = synthetic_batches(rcfg, device)
+def _start(rcfg, ckpt_dir, device):
+    """(state, start step, step_fn) of a job entering on ``device``: a
+    fresh state from the run's seed, or the newest checkpoint in
+    ``ckpt_dir`` restored there; ``step_fn`` steps an LM over that
+    state's params. The loop's attempts and the controller's segments
+    both enter here."""
     start = ckpt.latest_step(ckpt_dir)
     if start is None:
         gen = torch.Generator(device=device).manual_seed(rcfg.seed)
-        state = opt.init(init_params(rcfg.model, gen, device))
+        state = make_optimizer(rcfg).init(init_params(rcfg.model, gen,
+                                                      device))
         start = 0
     else:
-        state, start = ckpt.restore(ckpt_dir, _like(rcfg),
-                                    device=device)
+        state, start = ckpt.restore(ckpt_dir, _like(rcfg), device=device)
     lm = LM(rcfg.model, state.params, device=device)
     step_fn, _ = build_train_step(lm, rcfg)
+    return state, start, step_fn
+
+
+def _run_attempt(rcfg, ckpt_dir, num_steps, ckpt_every, device, batch_fn,
+                 fail_at, resize_at, report):
+    if batch_fn is None:
+        batch_fn = synthetic_batches(rcfg, device)
+    state, start, step_fn = _start(rcfg, ckpt_dir, device)
 
     for step in range(start, num_steps):
         if fail_at.pop(step, None):

@@ -35,6 +35,7 @@ REF, PORT = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
 COPIED = ("core/types.py", "core/policy.py", "core/provision.py",
           "core/lifecycle.py", "core/scheduling.py", "core/tre.py",
           "core/provider.py", "core/registry.py", "core/__init__.py",
+          "core/controller.py",
           "sim/traces.py", "sim/engine.py", "sim/systems.py",
           "sim/__init__.py", "serve/tenant.py", "serve/driver.py",
           "serve/paged.py", "serve/fleet.py", "serve/columnar.py",
@@ -42,13 +43,18 @@ COPIED = ("core/types.py", "core/policy.py", "core/provision.py",
 
 # Lines the port words differently, as (pattern in the reference, port
 # text) after the renames: docstrings that name the reference's pull
-# request history, the controller the port does not have yet, and one
-# error text.
+# request history or its framework, the controller's device pool, and
+# one error text.
 PR = r"PR \d+"
 PORT_LINES = {
-    "core/__init__.py": [
-        (r"- ``controller`` the live driver: DSP decisions on real elastic "
-         r"JAX jobs\n", "")],
+    "core/__init__.py": [(r"real elastic JAX jobs\n",
+                          "real elastic PyTorch jobs\n")],
+    "core/controller.py": [
+        (re.escape("        self.devices = list(devices if devices is not "
+                   "None else jax.devices())\n"),
+         "        # indexed devices: \"cuda\" and \"cuda:0\" name one card\n"
+         "        self.devices = [resolve_device(d) for d in (\n"
+         "            devices if devices is not None else [None])]\n")],
     "sim/systems.py": [
         (rf"bit-for-bit with {PR}\);", "bit-for-bit with the paper's runs);")],
     "sim/traces.py": [(rf"small \(the {PR}\n", "small (the\n")],
@@ -63,6 +69,13 @@ PORT_LINES = {
 }
 ADAPTER = re.compile(r"^class \w+EngineAdapter:\n(?:(?:    .*)?\n)*",
                      re.MULTILINE)
+# the controller's own parts in either package: the module docstring and
+# imports, and the two execution methods (placing a job, running a
+# segment)
+CONTROLLER_OWN = (re.compile(r"\A.*?(?=^@dataclass\nclass TrainTask)",
+                             re.MULTILINE | re.DOTALL),
+                  re.compile(r"^    def _mesh_for\(.*?(?=^    def tick\()",
+                             re.MULTILINE | re.DOTALL))
 EMULATED = ("dawningcloud", "dawningcloud-backfill",
             "dawningcloud-coordinated", "dawningcloud-easy",
             "dawningcloud-quota", "dcs", "drp", "ssp")
@@ -100,6 +113,11 @@ def test_copied_module_has_not_drifted(rel):
         # the adapter class is the port's own: the rest is the copy
         assert len(ADAPTER.findall(want)) == len(ADAPTER.findall(got)) == 1
         want, got = ADAPTER.sub("", want), ADAPTER.sub("", got)
+    if rel == "core/controller.py":
+        # the execution is the port's own: the rest is the copy
+        for own in CONTROLLER_OWN:
+            assert len(own.findall(want)) == len(own.findall(got)) == 1
+            want, got = own.sub("", want), own.sub("", got)
     assert got == want
 
 

@@ -1,8 +1,9 @@
 """The port stands alone and never falls back.
 
-- No module of ``src/repro_torch``, not ``chip_smoke.py`` and not
-  ``benchmarks/torch_serve_fleet.py`` imports jax or anything of
-  ``repro``; importing every port module loads neither. Nor do they
+- No module of ``src/repro_torch``, not ``chip_smoke.py``, not
+  ``benchmarks/torch_{serve_fleet,elastic}.py`` and no
+  ``examples/*_torch.py`` imports jax or anything of ``repro``;
+  importing every port module loads neither. Nor do they
   import ``msgpack``, which the card is not known to have: the
   checkpoints pack their manifest themselves.
 - Entry points run on the card unless the caller passes ``device="cpu"``:
@@ -31,6 +32,9 @@ import numpy as np  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.bridge import init_params, params_from_jax  # noqa: E402
+from repro_torch.core.controller import ElasticController  # noqa: E402
+from repro_torch.core.policy import MgmtPolicy  # noqa: E402
+from repro_torch.core.provision import ProvisionService  # noqa: E402
 from repro_torch.data.synthetic import synthetic_batches  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
@@ -48,7 +52,9 @@ from repro_torch.train.train_step import build_train_step  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "benchmarks" / "torch_serve_fleet.py"]
+    ROOT / "chip_smoke.py", ROOT / "benchmarks" / "torch_serve_fleet.py",
+    ROOT / "benchmarks" / "torch_elastic.py"] + sorted(
+    (ROOT / "examples").glob("*_torch.py"))
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .removesuffix(".__init__") for p in PORT.rglob("*.py"))
@@ -115,6 +121,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         train_loop(rcfg, ckpt_dir="unused", num_steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--arch", "qwen2-7b", "--steps", "1"])
+    # the controller's default pool is the card; a CPU pool runs
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ElasticController(policy=MgmtPolicy.htc(1, 1.0),
+                          provision=ProvisionService())
+    ElasticController(policy=MgmtPolicy.htc(1, 1.0),
+                      provision=ProvisionService(), devices=["cpu"] * 2)
 
 
 def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
