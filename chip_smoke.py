@@ -41,6 +41,16 @@ without its final line:
    with 16-byte loads. A 2-layer cut of musicgen
    and of mamba2 at full width in fp32 is held against the CPU's plain
    path.
+parallel. serving across ranks (``repro_torch.parallel``): a world of 2
+   ranks on the card over gloo (``torch.multiprocessing.spawn``), arctic's
+   2-layer cut with 64 of its 128 experts a rank, phase 4's weights and
+   requests. Run (A), experts split and attention replicated, must give
+   phase 4's contiguous tokens and finish order bit for bit; run (B) adds
+   the sequence-sharded decode cache and ring prefill, and each rank
+   holds those two collectives at the path's shapes against the decode
+   and flash kernels. Per rank: launches, prefill ms a group, decode ms a
+   step, peak device memory, backend; (B)'s logits and tokens against
+   (A)'s.
 dsp. the DSP control plane on musicgen-large at full width and depth
    (``benchmarks/torch_serve_fleet.py``, max_batch 8, max_len 48): a
    ``ServeDriver`` on one Montage DAG (paged), equal to its
@@ -105,6 +115,7 @@ import dataclasses
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -153,6 +164,19 @@ PATHS = (
 )
 N_REQ, PLENS, NEW_TOKENS = 16, (128, 256, 512), 32
 MAX_BATCH, MAX_LEN = 8, 1024
+# the parallel phase: phase 4's arctic cut, experts over 2 ranks of a mesh
+# (1, 2); run (A) experts only, run (B) with the sequence-parallel branches
+PARALLEL_WORLD = 2
+PARALLEL_PATH = ("arctic-480b", 2, False)
+PARALLEL_RUNS = (("A", {}),
+                 ("B", {"decode_kv_shard": "seq", "attn_seq_parallel": True}))
+# (B)'s first decode step against (A)'s, on the rows whose fed token and
+# every MoE layer's experts agree: their logits move only by bf16 rounding
+# (ring against flash, the sequence-sharded partials against the decode
+# kernel), which read 0.0547-0.0859 on those 7 of 8 rows on the H100. A
+# row whose near-tied top-2 flips moves by units (5.24) and is left out,
+# but at least half the rows must keep their experts.
+PARALLEL_LOGITS_TOL = 0.25
 
 
 class SmokeError(RuntimeError):
@@ -666,7 +690,9 @@ def path_config(arch, layers, smoke):
 
 def phase_serve(arch, layers, smoke, why, smi):
     """Serve one path contiguous and paged, check it, time its engine;
-    returns its launch counts. Its weights are freed by the caller."""
+    returns its launch counts, its MoE counts (or None) and the contiguous
+    run's (rid, tokens) in finish order. Its weights are freed by the
+    caller."""
     import numpy as np
     from repro_torch.bridge import init_params
     from repro_torch.models.blocks import DECODE_BLOCK_S
@@ -743,8 +769,10 @@ def phase_serve(arch, layers, smoke, why, smi):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"(max_memory_allocated, weights {n_params * lm.dtype.itemsize / 2**30:.2f}"
           f" GiB); {smi}")
+    served = [(r.rid, np.asarray(r.out_tokens).tolist())
+              for r in runs["contiguous"][0]]
     return ({k: runs["contiguous"][1][k] + runs["paged"][1][k]
-             for k in runs["contiguous"][1]}, moe_counts_by_t)
+             for k in runs["contiguous"][1]}, moe_counts_by_t, served)
 
 
 def reference_check(arch):
@@ -854,6 +882,296 @@ def free_device_memory():
     import gc
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _timed(fn, into):
+    """``fn`` with each call's wall seconds, between two device syncs,
+    appended to ``into``."""
+    def call(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        into.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def _parallel_rank(rank, world, port, out_dir):
+    """One rank of the parallel phase: ``torch.multiprocessing.spawn``'s
+    target, in a process of its own on the card. Draws arctic's 2-layer
+    cut with this rank's experts, serves phase 4's requests in runs (A)
+    and (B) and writes what the parent checks to ``out_dir``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.bridge import init_params
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import blocks
+    from repro_torch.models.lm import LM, Runtime, tree_leaves
+    from repro_torch.serve.engine import Engine, Request
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(1, world, device="cuda")
+        cfg = path_config(*PARALLEL_PATH)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)  # phase 4's
+        params = init_params(cfg, gen, "cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        lm = LM(cfg, params, device="cuda")
+        res = {"backend": dist.get_backend(), "device": str(mesh.device),
+               "coords": mesh.coords, "draw_s": time.perf_counter() - t0,
+               "local_experts": [int(p["moe"]["w_in"].shape[1])
+                                 for p in params["blocks"].values()],
+               "weights_gib": sum(t.numel() * t.element_size()
+                                  for _, t in tree_leaves(params)) / 2**30}
+        for run, over in PARALLEL_RUNS:
+            parallel = ParallelConfig(**over)
+            rt = Runtime(parallel, mesh)
+            eng = Engine(lm, rt=rt, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                         device="cuda")
+            pre_s, step_s, first, routed = [], [], [], []
+            eng._prefill_group = _timed(eng._prefill_group, pre_s)
+            eng.step = _timed(eng.step, step_s)
+            decode, route = lm.decode, blocks.route
+
+            def recording_route(*args, **kw):
+                ids, wts, aux = route(*args, **kw)
+                routed.append(ids.cpu())
+                return ids, wts, aux
+
+            def keep_first(tokens, lengths, caches, *args, **kw):
+                """The first decode step's fed tokens and lengths, its
+                logits, each MoE layer's choice of experts in it, and the
+                first layer's K/V cache (this rank's) after it."""
+                if first:
+                    return decode(tokens, lengths, caches, *args, **kw)
+                blocks.route = recording_route
+                try:
+                    out = decode(tokens, lengths, caches, *args, **kw)
+                finally:
+                    blocks.route = route
+                k0, v0 = (t[0].to("cpu", copy=True) for t in caches["pos0"])
+                first.append({"tokens": tokens.to("cpu", copy=True),
+                              "lengths": lengths.to("cpu", copy=True),
+                              "logits": out[0].float().cpu(),
+                              "ids": torch.stack(routed), "k0": k0,
+                              "v0": v0})
+                return out
+
+            lm.decode = keep_first
+            reqs = make_requests(cfg, Request)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            done = eng.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            del lm.decode
+            want = expected_launches(cfg, eng, False)
+            if rt.decode_kv_shard(cfg) == "seq":
+                want["decode_attention"] = 0
+            if parallel.attn_seq_parallel:     # every prompt divides by 2
+                want["flash_attention"] = 0
+            check(counts == want, f"parallel ({run}) rank {rank}: launches "
+                  f"{counts} != expected {want}")
+            torch.save(first[0], Path(out_dir) / f"first_{run}_{rank}.pt")
+            res[run] = {"served": [(r.rid, np.asarray(r.out_tokens).tolist())
+                                   for r in done],
+                        "counts": counts, "prefills": eng.prefills,
+                        "steps": eng.steps, "wall_s": wall,
+                        "prefill_ms": [1e3 * x for x in pre_s],
+                        "decode_ms": [1e3 * x for x in step_s],
+                        "decode_kv_shard": rt.decode_kv_shard(cfg)}
+            del eng
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        res["collectives"] = _collectives_at_path_shapes(mesh, cfg)
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _collectives_at_path_shapes(mesh, cfg):
+    """Run (B)'s two collectives at the path's shapes against the kernels
+    that (A) runs on the whole tensors, bf16 (``parallel.check``): the
+    sequence-sharded decode against the decode kernel at the first wave's
+    lengths (B 8, arctic's 56/8 heads x 128, a 1024-position cache, one
+    row empty and one full), and the ring against flash at the largest
+    prefill group (3 x 512). Every rank draws the same inputs. Returns the
+    max abs errors."""
+    from repro_torch.parallel.check import collectives_against_kernels
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    lengths = torch.tensor([p + NEW_TOKENS // 2 for p in PLENS]
+                           + [p + 3 for p in PLENS] + [0, MAX_LEN],
+                           dtype=torch.int32, device="cuda")
+    B, S = len(lengths), max(PLENS)
+    got = collectives_against_kernels(
+        mesh, rand((B, H, hd), torch.bfloat16, gen),
+        *(rand((B, MAX_LEN, KVH, hd), torch.bfloat16, gen) for _ in "kv"),
+        lengths, *(rand((B, KVH, hd), torch.bfloat16, gen) for _ in "kv"),
+        rand((3, S, H, hd), torch.bfloat16, gen),
+        *(rand((3, S, KVH, hd), torch.bfloat16, gen) for _ in "kv"))
+    check(got["caches_equal"], "parallel: the sequence-sharded caches "
+          "differ from the whole cache's writes")
+    return {"decode": max_err(got["decode"], got["decode_want"],
+                              TOL["bfloat16"]),
+            "ring": max_err(got["ring"], got["ring_want"], TOL["bfloat16"])}
+
+
+def check_seq_run(fa, fbs):
+    """Hold run (B)'s first decode step against run (A)'s: ``fa`` is
+    (A)'s record (every rank's is the same), ``fbs`` (B)'s, one a rank.
+
+    Exact: (B)'s first-layer caches, its ranks' slices laid end to end,
+    equal (A)'s bit for bit, on every row at every position but the one
+    this step wrote, and there too on the rows whose fed token agrees.
+    That layer's K/V come from the tokens alone, so a prefill splice
+    outside its rank's window or a decode write at a wrong offset differs
+    here, whatever rounding did. Within ``PARALLEL_LOGITS_TOL``: the
+    logits of the rows whose fed token and every MoE layer's experts
+    agree, at least half the rows. Returns (the kept rows' max abs error,
+    every row's, the rows left out, the logits' largest magnitude)."""
+    fb = fbs[0]
+    check(torch.equal(fa["lengths"], fb["lengths"]),
+          "parallel (B): the first decode step's lengths differ from (A)'s")
+    B, S = fa["k0"].shape[:2]
+    same_tok = (fa["tokens"] == fb["tokens"]).reshape(B, -1).all(-1)
+    written = (torch.arange(S)[None, :]
+               == fa["lengths"].long()[:, None])          # (B, S)
+    keep = same_tok[:, None] | ~written
+    for name in ("k0", "v0"):
+        whole = torch.cat([x[name] for x in fbs], dim=1)
+        check(torch.equal(whole[keep], fa[name][keep]),
+              f"parallel (B): the first layer's {name[0].upper()} cache, "
+              f"the ranks' slices end to end, differs from (A)'s")
+    row_err = (fb["logits"] - fa["logits"]).abs().reshape(B, -1).amax(-1)
+    flipped = (fa["ids"].sort(dim=-1).values
+               != fb["ids"].sort(dim=-1).values).reshape(
+                   fa["ids"].shape[0], B, -1).any(-1).any(0)
+    kept = same_tok & ~flipped
+    check(2 * int(kept.sum()) >= B, f"parallel (B): only {int(kept.sum())}"
+          f" of {B} rows kept their token and experts at the first decode "
+          "step")
+    err = row_err[kept].max().item()
+    check(err <= PARALLEL_LOGITS_TOL, f"parallel (B): first decode step's "
+          f"logits {err:.3e} from (A)'s on the rows whose token and experts "
+          f"agree, over {PARALLEL_LOGITS_TOL}")
+    return (err, row_err.tolist(), (~kept).nonzero().flatten().tolist(),
+            fa["logits"].abs().max().item())
+
+
+def phase_parallel(single_served, smi):
+    """Serving across ranks (``repro_torch.parallel``): a world of 2 ranks
+    on the card over gloo, arctic-480b at published widths cut to 2 of 35
+    layers as in phase 4, each rank drawing phase 4's weights and keeping
+    64 of the 128 experts of each layer. (A): experts parallel, attention
+    replicated (every head on every rank, contiguous KV); every request's
+    tokens and the finish order must equal phase 4's single-rank
+    contiguous run's bit for bit. (B): (A) plus the sequence-sharded
+    decode cache and ring prefill; every request must be served in full,
+    its first decode step must pass ``check_seq_run`` against (A)'s, and
+    each rank holds the two collectives at the path's shapes against the
+    kernels (A) runs, within the bf16 tolerance. The share of (B)'s
+    tokens equal to (A)'s is printed, not gated: bf16 rounding that
+    differs in attention flips near-tied top-2 choices and greedy
+    argmaxes, and the runs part from there. Each rank sets its launch
+    counters to 0 just before each run and reads them just after.
+    Returns the runs' summed launch counts."""
+    import shutil
+    import socket
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(_parallel_rank, args=(PARALLEL_WORLD, port, str(out)),
+                 nprocs=PARALLEL_WORLD, join=True)
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((out / f"rank{r}.json").read_text())
+                 for r in range(PARALLEL_WORLD)]
+        first = {run: [torch.load(out / f"first_{run}_{r}.pt")
+                       for r in range(PARALLEL_WORLD)]
+                 for run, _ in PARALLEL_RUNS}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    cfg = path_config(*PARALLEL_PATH)
+    want = [[rid, toks] for rid, toks in single_served]
+    total = {}
+    for r, res in enumerate(ranks):
+        check(res["local_experts"] == [cfg.n_experts // PARALLEL_WORLD]
+              * len(res["local_experts"]),
+              f"parallel rank {r}: local experts {res['local_experts']}")
+        phase("parallel", "rank", f"rank {r} of {PARALLEL_WORLD} on "
+              f"{res['device']} over {res['backend']} (coords "
+              f"{res['coords']}): {res['local_experts']} local experts a MoE "
+              f"layer, {res['weights_gib']:.2f} GiB of weights drawn in "
+              f"{res['draw_s']:.2f} s; peak device memory "
+              f"{res['peak_gib']:.2f} GiB (max_memory_allocated); at the "
+              f"path's shapes, bf16: sequence-sharded decode max abs err "
+              f"{res['collectives']['decode']:.3e} against the decode kernel,"
+              f" ring {res['collectives']['ring']:.3e} against flash (tol "
+              f"{TOL['bfloat16']})")
+        for run, _ in PARALLEL_RUNS:
+            x = res[run]
+            check(x["counts"]["moe_gmm"] > 0, f"parallel ({run}) rank {r}: "
+                  "moe_gmm never launched")
+            check(x["served"] == ranks[0][run]["served"],
+                  f"parallel ({run}): rank {r} served other tokens or another"
+                  " finish order than rank 0")
+            pre, dec = x["prefill_ms"], x["decode_ms"]
+            phase("parallel", run, f"rank {r}: decode_kv_shard "
+                  f"{x['decode_kv_shard']}; {len(x['served'])} requests, "
+                  f"{x['prefills']} prefills at {statistics.median(pre):.3f} "
+                  f"ms a group (median; mean {statistics.mean(pre):.3f}, "
+                  f"first {pre[0]:.3f}), {x['steps']} decode steps at "
+                  f"{statistics.median(dec):.3f} ms a step (median; mean "
+                  f"{statistics.mean(dec):.3f}), wall {x['wall_s']:.3f} s; "
+                  f"launches "
+                  f"{x['counts']} (moe_gmm on {res['local_experts'][0]} "
+                  f"experts a call); backend {res['backend']}; {smi}")
+            for k, v in x["counts"].items():
+                total[k] = total.get(k, 0) + v
+    a, b = ranks[0]["A"]["served"], ranks[0]["B"]["served"]
+    check(a == want, "parallel (A): tokens or finish order differ from "
+          "phase 4's single-rank contiguous arctic run")
+    for run in first:
+        check(all(torch.equal(x[w], first[run][0][w]) for x in first[run]
+                  for w in ("tokens", "lengths", "logits", "ids")),
+              f"parallel ({run}): the ranks' first decode steps differ")
+        check(torch.equal(first[run][0]["lengths"],
+                          first["A"][0]["lengths"]),
+              f"parallel ({run}): the first decode step's lengths differ")
+    check(all(torch.equal(x[w], first["A"][0][w]) for x in first["A"]
+              for w in ("k0", "v0")),
+          "parallel (A): the ranks' replicated caches differ")
+    err, row_err, left_out, scale = check_seq_run(first["A"][0], first["B"])
+    same = sum(x == y for (_, ta), (_, tb) in zip(sorted(a), sorted(b))
+               for x, y in zip(ta, tb))
+    n_tok = sum(len(t) for _, t in a)
+    check(all(len(t) == NEW_TOKENS and min(t) >= 0
+              and max(t) < cfg.vocab_padded for _, t in b)
+          and sorted(r for r, _ in b) == list(range(N_REQ)),
+          "parallel (B): a request unserved, short or out of range")
+    phase("parallel", "done", f"(A) {len(a)} requests' tokens and finish "
+          f"order equal phase 4's single-rank contiguous run's bit for bit; "
+          f"(B) served all {len(b)}; at its first decode step the first "
+          f"layer's K/V caches, the ranks' slices end to end, equal (A)'s bit"
+          f" for bit, and its logits are {err:.3e} from (A)'s at most on the"
+          f" rows whose token and experts agree (limit "
+          f"{PARALLEL_LOGITS_TOL}; |logit| up to {scale:.3f}), by row "
+          f"{[round(e, 4) for e in row_err]} (left out, their token or "
+          f"experts differ: {left_out}); {same} of {n_tok} tokens "
+          f"({same / n_tok:.1%}) equal to (A)'s; phase {wall:.1f} s; {smi}")
+    return total
 
 
 def phase_dsp(smi):
@@ -1777,9 +2095,10 @@ def main():
     free_device_memory()
     per_call = phase_launches_per_call()
     free_device_memory()
-    launches, by_path, moe_counts_by_arch = {}, {}, {}
+    launches, by_path, moe_counts_by_arch, served = {}, {}, {}, {}
     for arch, layers, smoke, why in PATHS:
-        counts, moe_counts_by_t = phase_serve(arch, layers, smoke, why, smi)
+        counts, moe_counts_by_t, served[arch] = phase_serve(
+            arch, layers, smoke, why, smi)
         by_path[arch] = counts
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
@@ -1792,6 +2111,9 @@ def main():
         if arch in ("musicgen-large", "mamba2-1.3b"):
             reference_check(arch)
             free_device_memory()
+    for k, v in phase_parallel(served["arctic-480b"], smi).items():
+        launches[k] += v
+    free_device_memory()
     for k, v in phase_dsp(smi).items():
         launches[k] += v
     free_device_memory()

@@ -1,0 +1,87 @@
+"""Serving across ranks on the port: one model's experts split over the
+``model`` axis of a mesh, decode attention sharded along the sequence and
+prefill attention in a ring (``repro_torch.parallel``).
+
+Every rank runs the same ``Engine`` on the same requests and returns the
+same tokens; rank 0 prints them. On N cards, NCCL with a card a rank:
+
+  PYTHONPATH=src torchrun --nproc-per-node N examples/serve_parallel_torch.py
+
+On the CPU, N processes over gloo (no torchrun needed):
+
+  PYTHONPATH=src python examples/serve_parallel_torch.py --device cpu --world 2
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import socket
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.bridge import init_params
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import ParallelConfig
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.lm import LM, Runtime
+from repro_torch.serve.engine import Engine, Request
+
+
+def serve(rank: int, world: int, args, init_method: str) -> list:
+    """One rank: join the world, build the mesh and this rank's weights,
+    serve, and return [(rid, tokens)] in finish order."""
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(1, world, device=args.device)
+        cfg = get_smoke_config(args.arch)
+        gen = torch.Generator(device=mesh.device).manual_seed(0)
+        lm = LM(cfg, init_params(cfg, gen, mesh.device, mesh=mesh),
+                device=mesh.device)
+        rt = Runtime(ParallelConfig(decode_kv_shard="seq",
+                                    attn_seq_parallel=True), mesh)
+        eng = Engine(lm, rt=rt, max_batch=4, max_len=64, device=mesh.device)
+        r = np.random.default_rng(0)
+        done = eng.run([Request(rid=i, tokens=r.integers(
+            1, cfg.vocab_size, (8 * (1 + i % 3),)).astype(np.int32),
+            max_new_tokens=6) for i in range(6)])
+        served = [(q.rid, [int(t) for t in q.out_tokens]) for q in done]
+        if rank == 0:
+            print(f"{cfg.name} over {world} ranks ({backend}, "
+                  f"{lm.params['blocks']['pos0']['moe']['w_in'].shape[1]} of "
+                  f"{cfg.n_experts} experts a rank):")
+            for rid, toks in served:
+                print(f"  request {rid}: {toks}")
+        return served
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawned(rank, world, args, init_method):
+    serve(rank, world, args, init_method)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default=None,
+                    help="default: the card (one a rank); 'cpu' runs gloo")
+    ap.add_argument("--world", type=int, default=2,
+                    help="ranks to spawn when not under torchrun")
+    ap.add_argument("--arch", default="arctic-480b")
+    args = ap.parse_args(argv)
+    if "RANK" in os.environ:                       # under torchrun
+        return serve(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                     args, "env://")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.spawn(_spawned, args=(args.world, args, f"tcp://localhost:{port}"),
+             nprocs=args.world, join=True)
+
+
+if __name__ == "__main__":
+    main()

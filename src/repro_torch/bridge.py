@@ -8,13 +8,24 @@ them to run both packages on the same weights and optimizer state.
 shapes, laws, scales and dtypes as ``repro.models.module.Scope.param``; it
 cannot reproduce ``jax.random``'s draws, so parity runs use
 ``params_from_jax``.
+
+``param_axes`` is the port's copy of the logical axes that ``Scope.param``
+records for every leaf (``parallel.sharding`` places them). Given a mesh,
+both ``params_from_jax`` and ``init_params`` keep only this rank's shard
+of each leaf that serving shards, the MoE expert weights over the
+``model`` axis (``shard_leaf``); ``init_params`` still draws the whole
+stream, so a sharded model's weights are exactly the slices of the
+single-rank model's.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
-from repro_torch.models.lm import DTYPES, resolve_device, tree_map
+from repro_torch.models.lm import DTYPES, resolve_device
+from repro_torch.parallel.sharding import AXIS_MODEL, resolve_spec
 from repro_torch.train.optimizer import TrainState
 
 # A leaf whose fp32 draw would exceed this is drawn in slices along its
@@ -31,12 +42,102 @@ def _to_tensor(a, device):
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def params_from_jax(tree, device=None):
-    """A nested dict of arrays (JAX leaves through ``np.asarray``) -> the
-    same nested dict of tensors on ``device``. bf16 leaves cross as an
-    int16 view of their bits, so they arrive bit for bit."""
+def _map_with_path(fn, tree, path=""):
+    """``fn(path, leaf)`` over the leaves of nested dicts and tuples,
+    '/'-joined paths (a tuple's items by index)."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_map_with_path(fn, v, f"{path}/{i}")
+                     for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def params_from_jax(tree, device=None, *, mesh=None):
+    """A nested dict (or tuple) of arrays (JAX leaves through
+    ``np.asarray``) -> the same tree of tensors on ``device``. bf16 leaves
+    cross as an int16 view of their bits, so they arrive bit for bit. With
+    ``mesh`` (``launch.mesh.Mesh``), a leaf that serving shards keeps this
+    rank's slice (``shard_leaf``)."""
     device = resolve_device(device)
-    return tree_map(lambda a: _to_tensor(a, device), tree)
+
+    def convert(path, a):
+        a = np.asarray(a)
+        cut = shard_leaf(path, a.shape, mesh) if mesh is not None else None
+        if cut is not None:
+            dim, lo, hi = cut
+            a = a[(slice(None),) * dim + (slice(lo, hi),)]
+        return _to_tensor(a, device)
+
+    return _map_with_path(convert, tree)
+
+
+# logical axes by (parent, leaf name), as the reference's init functions
+# record them; the dense, shared and dense-residual MLPs share ``mlp``'s
+_AXES = {
+    "embed": ("codebooks", "vocab", "embed"),
+    "head": ("codebooks", "embed", "vocab"),
+    "attn/wq": ("embed", "heads"), "attn/wk": ("embed", "kv_heads"),
+    "attn/wv": ("embed", "kv_heads"), "attn/wo": ("heads", "embed"),
+    "attn/bq": ("heads",), "attn/bk": ("kv_heads",), "attn/bv": ("kv_heads",),
+    "mlp/w_in": ("embed", "mlp"), "mlp/w_gate": ("embed", "mlp"),
+    "mlp/w_out": ("mlp", "embed"),
+    "mamba/w_z": ("embed", "ssm_inner"), "mamba/w_x": ("embed", "ssm_inner"),
+    "mamba/w_B": ("embed", "ssm_state"), "mamba/w_C": ("embed", "ssm_state"),
+    "mamba/w_dt": ("embed", "ssm_inner"),
+    "mamba/conv_x": ("conv", "ssm_inner"),
+    "mamba/conv_B": ("conv", "ssm_state"),
+    "mamba/conv_C": ("conv", "ssm_state"),
+    "mamba/a_log": ("ssm_inner",), "mamba/d_skip": ("ssm_inner",),
+    "mamba/dt_bias": ("ssm_inner",), "mamba/w_out": ("ssm_inner", "embed"),
+    "moe/router": ("embed", "experts"),
+    "moe/w_in": ("experts", "embed", "expert_mlp"),
+    "moe/w_gate": ("experts", "embed", "expert_mlp"),
+    "moe/w_out": ("experts", "expert_mlp", "embed"),
+}
+
+
+def leaf_axes(path: str) -> tuple[str, ...]:
+    """The logical axes of the param leaf at ``path`` ('/'-joined), with
+    the leading ``layers`` axis of a stacked block leaf."""
+    parts = path.split("/")
+    name = parts[-1]
+    parent = parts[-2] if len(parts) > 1 else ""
+    if parent in ("dense_mlp", "shared_mlp"):
+        parent = "mlp"
+    if name.startswith("norm") or name.endswith("_norm"):
+        axes = ("norm",)                  # every rmsnorm scale
+    else:
+        axes = _AXES[f"{parent}/{name}" if parent else name]
+    return ("layers",) + axes if parts[0] == "blocks" else axes
+
+
+def param_axes(cfg):
+    """Nested dict of each leaf's logical axes: the reference's
+    ``LM(cfg).init(None, abstract=True)[1]``."""
+    return _build(cfg, lambda full, spec, path: leaf_axes(path))
+
+
+def shard_leaf(path: str, shape, mesh):
+    """(dim, start, stop) of the slice of leaf ``path`` (of ``shape``)
+    that this rank of ``mesh`` holds, or None when it holds it whole.
+
+    Serving shards the expert weights alone: the leaves whose logical
+    axes, after ``layers``, begin with ``experts``, along that dim where
+    ``resolve_spec`` places it on the ``model`` axis. The router's
+    ``experts`` dim stays whole: every rank routes every token."""
+    axes = leaf_axes(path)
+    dim = 1 if axes[0] == "layers" else 0
+    if len(axes) <= dim or axes[dim] != "experts":
+        return None
+    spec = resolve_spec(axes, tuple(shape), mesh)
+    at = spec[dim] if dim < len(spec) else None
+    if AXIS_MODEL not in ((at,) if isinstance(at, str) else (at or ())):
+        return None
+    size = shape[dim] // mesh.shape[AXIS_MODEL]
+    i = mesh.coords[AXIS_MODEL]
+    return dim, i * size, (i + 1) * size
 
 
 def _spec(shape, law="fan_in", scale=1.0, dtype=None):
@@ -133,58 +234,83 @@ def param_specs(cfg):
                        for i in range(cfg.pattern_period)}}
 
 
-def _fill_normal(out, std, generator):
-    """Draw ``out`` in place from N(0, std^2) in fp32, in slices along
-    the leading axes while a slice's fp32 draw exceeds DRAW_LIMIT_BYTES."""
-    if out.dim() > 1 and out.numel() * 4 > DRAW_LIMIT_BYTES:
-        for part in out:
-            _fill_normal(part, std, generator)
+def _fill_normal(out, std, generator, shape=None, keep=None):
+    """Draw a leaf of ``shape`` (``out``'s by default) from N(0, std^2)
+    in fp32, in slices along the leading axes while a slice's fp32 draw
+    exceeds DRAW_LIMIT_BYTES, into ``out``.
+
+    ``keep`` (dim, start, stop): ``out`` holds only that slice of the
+    leaf. Every slice of the whole leaf is still drawn, in the same order,
+    so the generator moves as for the whole leaf; what lies outside is
+    dropped. ``out`` None: draw and drop everything."""
+    shape = tuple(out.shape) if shape is None else tuple(shape)
+    if len(shape) > 1 and math.prod(shape) * 4 > DRAW_LIMIT_BYTES:
+        for j in range(shape[0]):
+            part, sub = None, None
+            if keep is None:
+                part = None if out is None else out[j]
+            elif keep[0] > 0:
+                part = None if out is None else out[j]
+                sub = (keep[0] - 1,) + tuple(keep[1:])
+            elif keep[1] <= j < keep[2] and out is not None:
+                part = out[j - keep[1]]
+            _fill_normal(part, std, generator, shape[1:], sub)
         return
-    out.copy_(torch.randn(out.shape, generator=generator,
-                          dtype=torch.float32, device=out.device).mul_(std))
+    draw = torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device).mul_(std)
+    if out is not None:
+        if keep is not None:
+            draw = draw.narrow(keep[0], keep[1], keep[2] - keep[1])
+        out.copy_(draw)
 
 
 def _build(cfg, make):
-    """The param tree of ``cfg``, each leaf ``make(full shape, spec)``:
-    block leaves carry the stacked leading ``R`` axis."""
+    """The param tree of ``cfg``, each leaf ``make(full shape, spec,
+    path)``: block leaves carry the stacked leading ``R`` axis."""
     repeats = cfg.n_layers // cfg.pattern_period
 
-    def build(spec, stack):
-        return {k: build(v, stack) if isinstance(v, dict)
-                else make(((stack,) if stack else ()) + v[0], v)
+    def build(spec, stack, prefix):
+        return {k: build(v, stack, f"{prefix}{k}/") if isinstance(v, dict)
+                else make(((stack,) if stack else ()) + v[0], v, prefix + k)
                 for k, v in spec.items()}
 
     specs = param_specs(cfg)
     blocks = specs.pop("blocks")
-    params = build(specs, None)
-    params["blocks"] = build(blocks, repeats)
+    params = build(specs, None, "")
+    params["blocks"] = build(blocks, repeats, "blocks/")
     return params
 
 
 def meta_params(cfg):
     """The param tree of ``cfg`` as meta tensors: shapes and dtypes only."""
-    return _build(cfg, lambda full, spec: torch.empty(
+    return _build(cfg, lambda full, spec, path: torch.empty(
         full, dtype=spec[3] or DTYPES[cfg.dtype], device="meta"))
 
 
-def init_params(cfg, generator: torch.Generator, device=None):
+def init_params(cfg, generator: torch.Generator, device=None, *, mesh=None):
     """Fresh weights on ``device`` (the card by default) from ``generator``,
     which must live on the same device. Block leaves carry the stacked
     leading ``R`` axis; the fan of a stacked weight is its per-layer
-    ``shape[-2]``. Draws are fp32, then cast to the leaf's dtype."""
+    ``shape[-2]``. Draws are fp32, then cast to the leaf's dtype. With
+    ``mesh``, a leaf that serving shards keeps this rank's slice of the
+    same draws (``shard_leaf``)."""
     device = resolve_device(device)
 
-    def make(full, spec):
+    def make(full, spec, path):
         shape, law, scale, dtype = spec
         dtype = dtype or DTYPES[cfg.dtype]
+        cut = shard_leaf(path, full, mesh) if mesh is not None else None
+        local = list(full)
+        if cut is not None:
+            local[cut[0]] = cut[2] - cut[1]
         if law == "zeros":
-            return torch.zeros(full, dtype=dtype, device=device)
+            return torch.zeros(local, dtype=dtype, device=device)
         if law == "ones":
-            return torch.ones(full, dtype=dtype, device=device)
+            return torch.ones(local, dtype=dtype, device=device)
         fan = shape[-2] if len(shape) >= 2 else shape[0]
         std = scale if law == "normal" else scale / fan ** 0.5
-        out = torch.empty(full, dtype=dtype, device=device)
-        _fill_normal(out, std, generator)
+        out = torch.empty(local, dtype=dtype, device=device)
+        _fill_normal(out, std, generator, full, cut)
         return out
 
     return _build(cfg, make)

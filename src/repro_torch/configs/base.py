@@ -3,9 +3,11 @@
 ``ModelConfig``, ``ShapeConfig``, ``SHAPES``, ``ParallelConfig``,
 ``RunConfig`` and ``smoke_reduce`` are field-for-field copies of the JAX
 package's (a test pins the equality), so a config names the same model and
-run in both packages. The port runs on one card: of ``ParallelConfig`` the
-training route reads ``remat``, ``microbatches``, the attention chunks and
-``attn_impl``, and refuses ``grad_compress_pod``.
+run in both packages. Of ``ParallelConfig``, serving across ranks
+(``models.lm.Runtime``) reads ``decode_kv_shard`` and
+``attn_seq_parallel``; training runs on one card and reads ``remat``,
+``microbatches``, the attention chunks and ``attn_impl``, and refuses
+``grad_compress_pod``.
 """
 from __future__ import annotations
 

@@ -32,8 +32,8 @@ reference's placeholder host devices are n slots of one host. The
 reference's data axis places a batch's rows and does not change what a
 step computes, so a grown job's segment runs the same global batch on the
 same card. A job across distinct cards needs data parallelism over
-``torch.distributed``, which the port does not have yet: ``_mesh_for``
-raises for it.
+``torch.distributed``: the port's ``parallel/`` serves across ranks but
+does not train across them yet, so ``_mesh_for`` raises for it.
 """
 from __future__ import annotations
 
@@ -145,8 +145,9 @@ class ElasticController:
         if any(d != first for d in self.devices[:n]):
             raise NotImplementedError(
                 f"a job across distinct devices {self.devices[:n]} needs "
-                "data parallelism over torch.distributed (ROADMAP queue 3, "
-                "parallel/); the port trains on one card")
+                "data-parallel training over torch.distributed, which the "
+                "port's parallel/ does not have yet (it serves across ranks;"
+                " ROADMAP queue 3); the port trains on one card")
         return first
 
     # ------------------------------------------------------------- a tick

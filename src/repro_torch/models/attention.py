@@ -2,8 +2,9 @@
 (``repro.models.attention``).
 
 Serving attends through kernels: prefill through ``kernels.ops.attention``
-(flash) and decode through ``kernels.ops.decode`` or
-``kernels.ops.paged_decode``. Those kernels are forward-only, so training
+(flash, by way of ``prefill_attention``) and decode through
+``kernels.ops.decode`` or ``kernels.ops.paged_decode``. Those kernels are
+forward-only, so training
 attends through ``chunked_attention``, the reference's memory-efficient
 softmax over (q chunk, kv chunk) blocks as plain tensor ops that autograd
 differentiates: the same chunks, the same padding of ragged lengths, the
@@ -14,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, rmsnorm
 
 NEG_INF = -1e30
@@ -47,6 +49,22 @@ def repeat_kv(k, n_heads: int):
     rep = n_heads // KVH
     return k[:, :, :, None, :].expand(B, S, KVH, rep, hd).reshape(
         B, S, n_heads, hd)
+
+
+def prefill_attention(q, k, v):
+    """Causal q (B, S, H, hd), k/v (B, S, KVH, hd) -> (B, S, H, hd)
+    through ``kernels.ops.attention`` on heads-major (B*H, S, hd), KV
+    heads repeated."""
+    B, S, H, hd = q.shape
+
+    def heads_major(t):               # (B, S, H, hd) -> (B*H, S, hd)
+        # contiguous: at B == 1 the reshape is a strided view, which the
+        # kernel refuses
+        return t.transpose(1, 2).reshape(B * H, S, hd).contiguous()
+
+    o = ops.attention(heads_major(q), heads_major(repeat_kv(k, H)),
+                      heads_major(repeat_kv(v, H)), causal=True)
+    return o.reshape(B, H, S, hd).transpose(1, 2)
 
 
 def _block_attn(qb, kb, vb, mask, scale):

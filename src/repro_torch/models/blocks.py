@@ -9,6 +9,14 @@ package returns an updated copy that jit donates. Mamba2 layers run
 ``models.ssm`` (the ``ssd_scan`` kernel at prefill) and MoE layers
 ``models.moe`` (the ``moe_gmm`` kernel).
 
+Under a mesh (``Runtime.mesh``) attention has the reference's two
+sequence-parallel branches: with ``attn_seq_parallel`` prefill runs
+``ring_attention``, and with ``decode_kv_shard`` "seq" each rank's cache
+holds its slice of the positions and decode runs
+``seq_sharded_decode_attention``. Otherwise ("heads") every rank
+computes every head, as on one card. MoE layers run expert-parallel over
+the mesh's ``model`` axis (``moe_apply``); Mamba2 layers are replicated.
+
 Training runs ``block_train``: the same blocks over the whole sequence
 with no cache, through plain tensor ops only (``chunked_attention``,
 ``ssd_chunked``, ``moe_train``), since the kernels are forward-only.
@@ -19,10 +27,12 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.attention import (
-    chunked_attention, qkv_proj, repeat_kv)
+    chunked_attention, prefill_attention, qkv_proj, repeat_kv)
 from repro_torch.models.layers import mlp_apply, rmsnorm
 from repro_torch.models.moe import moe_apply, moe_train, route
 from repro_torch.models.ssm import mamba_apply
+from repro_torch.parallel.collectives import (
+    ring_attention, seq_sharded_decode_attention)
 
 # Cache positions each split of the contiguous decode kernel sweeps. A
 # paged engine whose page_size equals it decodes bit-identically to the
@@ -30,7 +40,7 @@ from repro_torch.models.ssm import mamba_apply
 DECODE_BLOCK_S = 128
 
 
-def attn_block(p, cfg, x, positions, *, cache=None, lengths=None,
+def attn_block(p, cfg, x, positions, *, rt=None, cache=None, lengths=None,
                page_table=None, full=None, block_s: int = DECODE_BLOCK_S):
     """Returns (out (B, S, d), cache).
 
@@ -45,69 +55,89 @@ def attn_block(p, cfg, x, positions, *, cache=None, lengths=None,
     nothing and attends over its full cache, as the JAX contiguous path
     does when its scatter drops the out-of-range write. ``block_s`` is the
     cache positions each split of the contiguous decode kernel sweeps.
+
+    ``rt`` (``models.lm.Runtime``, None for one rank): with a mesh and
+    ``attn_seq_parallel``, prefill attends through ``ring_attention``;
+    with ``rt.decode_kv_shard(cfg) == "seq"`` the cache is this rank's
+    slice of the positions and decode runs
+    ``seq_sharded_decode_attention``, whose insert rule leaves a full
+    row's cache as it is (``full`` is not needed there).
     """
     B, S, _ = x.shape
     q, k, v = qkv_proj(p, cfg, x, positions)
+    mesh = rt.mesh if rt is not None else None
     if cache is None:
-        H, hd = cfg.n_heads, cfg.head_dim
-
-        def heads_major(t):               # (B, S, H, hd) -> (B*H, S, hd)
-            # contiguous: at B == 1 the reshape is a strided view, which
-            # the kernel refuses
-            return t.transpose(1, 2).reshape(B * H, S, hd).contiguous()
-
-        o = ops.attention(heads_major(q), heads_major(repeat_kv(k, H)),
-                          heads_major(repeat_kv(v, H)), causal=True)
-        o = o.reshape(B, H, S, hd).transpose(1, 2)
+        if mesh is not None and rt.parallel.attn_seq_parallel:
+            o = ring_attention(q, k, v, mesh)
+        else:
+            o = prefill_attention(q, k, v)
         new_cache = (k, v)
     else:
         if S != 1:
             raise ValueError(f"decode takes one token per row, got {S}")
         k_cache, v_cache = cache
-        rows = torch.arange(B, device=x.device)
-        pos = at = lengths.long()
-        if full is not None:
-            # a full row (pos == capacity) rewrites the value its last
-            # position holds: no out-of-range index is formed
-            at = pos - full.long()
-        if page_table is not None:
-            ps = k_cache.shape[1]
-            idx = (page_table.long()[rows, at // ps], at % ps)
+        if (rt is not None and page_table is None
+                and rt.decode_kv_shard(cfg) == "seq"):
+            o, _, _ = seq_sharded_decode_attention(
+                q[:, 0], k_cache, v_cache, lengths, k[:, 0], v[:, 0], mesh)
         else:
-            idx = (rows, at)
-        for dst, new in ((k_cache, k[:, 0]), (v_cache, v[:, 0])):
-            dst[idx] = (new if full is None
-                        else torch.where(full[:, None, None], dst[idx], new))
-        if page_table is not None:
-            o = ops.paged_decode(q[:, 0], k_cache, v_cache, page_table,
-                                 lengths + 1)
-        else:
-            o = ops.decode(q[:, 0], k_cache, v_cache, lengths + 1,
-                           block_s=block_s)
+            o = _decode_attention(q[:, 0], k[:, 0], v[:, 0], k_cache,
+                                  v_cache, lengths, page_table, full,
+                                  block_s)
         o = o[:, None]
         new_cache = cache
     out = o.reshape(B, S, cfg.q_dim) @ p["wo"]
     return out, new_cache
 
 
-def block_apply(p, cfg, x, positions, i: int, *, cache=None, lengths=None,
-                page_table=None, full=None, block_s: int = DECODE_BLOCK_S):
+def _decode_attention(q, k, v, k_cache, v_cache, lengths, page_table, full,
+                      block_s):
+    """One rank's whole cache: write each row's k/v (B, KVH, hd) in place
+    and attend q (B, H, hd) through the contiguous or the paged decode
+    kernel."""
+    B = q.shape[0]
+    rows = torch.arange(B, device=q.device)
+    pos = at = lengths.long()
+    if full is not None:
+        # a full row (pos == capacity) rewrites the value its last
+        # position holds: no out-of-range index is formed
+        at = pos - full.long()
+    if page_table is not None:
+        ps = k_cache.shape[1]
+        idx = (page_table.long()[rows, at // ps], at % ps)
+    else:
+        idx = (rows, at)
+    for dst, new in ((k_cache, k), (v_cache, v)):
+        dst[idx] = (new if full is None
+                    else torch.where(full[:, None, None], dst[idx], new))
+    if page_table is not None:
+        return ops.paged_decode(q, k_cache, v_cache, page_table, lengths + 1)
+    return ops.decode(q, k_cache, v_cache, lengths + 1, block_s=block_s)
+
+
+def block_apply(p, cfg, x, positions, i: int, *, rt=None, cache=None,
+                lengths=None, page_table=None, full=None,
+                block_s: int = DECODE_BLOCK_S):
     """One pre-norm block at pattern position ``i``: attention or Mamba2,
     then the MoE layer (with the dense residual or shared MLP where the
     config has one) or the dense MLP. Returns (x, cache).
 
     ``cache`` is the layer's: (k, v) for attention, (conv tails, state)
     for Mamba2; ``lengths``, ``page_table``, ``full`` and ``block_s``
-    concern attention only.
+    concern attention only. ``rt``: the runtime (``attn_block``; its mesh
+    also runs the MoE layer expert-parallel).
     """
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if cfg.block_kind(i) == "attn":
-        out, new_cache = attn_block(p["attn"], cfg, h, positions, cache=cache,
-                                    lengths=lengths, page_table=page_table,
-                                    full=full, block_s=block_s)
+        out, new_cache = attn_block(p["attn"], cfg, h, positions, rt=rt,
+                                    cache=cache, lengths=lengths,
+                                    page_table=page_table, full=full,
+                                    block_s=block_s)
     else:
         out, new_cache = mamba_apply(p["mamba"], cfg, h, cache=cache)
-    return _ffn(p, cfg, x + out, i, moe_apply)[0], new_cache
+    mesh = rt.mesh if rt is not None else None
+    x, _ = _ffn(p, cfg, x + out, i, lambda *a: moe_apply(*a, mesh=mesh))
+    return x, new_cache
 
 
 def _ffn(p, cfg, x, i: int, moe_fn):

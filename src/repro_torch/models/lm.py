@@ -12,7 +12,9 @@ fp32)``, slot-indexed in both modes. Where JAX scans over R, this module
 loops over per-layer views.
 
 Serving (``prefill``, ``decode``) runs under ``torch.no_grad`` through the
-kernels. Training (``loss``) runs the blocks' plain training route under
+kernels, on one rank or, with a ``Runtime`` whose mesh spans several, as
+one rank of that mesh (``models.blocks``). Training (``loss``) runs the
+blocks' plain training route under
 autograd, each pattern repeat under ``torch.utils.checkpoint`` unless
 ``remat == "none"``: the counterpart of the reference's ``jax.checkpoint``
 with ``nothing_saveable`` around its scan body.
@@ -20,6 +22,8 @@ with ``nothing_saveable`` around its scan body.
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass, field
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.models.blocks import DECODE_BLOCK_S, block_apply, block_train
 from repro_torch.models.layers import rmsnorm
+from repro_torch.parallel.sharding import AXIS_MODEL
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -102,6 +107,46 @@ def _stack(trees):
     if isinstance(first, tuple):
         return tuple(_stack([t[j] for t in trees]) for j in range(len(first)))
     return torch.stack(trees)
+
+
+@dataclass
+class Runtime:
+    """The serving passes' execution context (``repro.models.lm.Runtime``):
+    a ``ParallelConfig`` and the mesh (``launch.mesh.Mesh``; None for one
+    rank, where the passes are the single-card path, bit for bit).
+
+    The reference's ``padded_heads``, ``shard_heads`` and
+    ``shard_activations`` only steer GSPMD's placement of activations,
+    and ``block_axes`` its FSDP re-gather; the port keeps activations
+    whole on every rank and has no counterpart of them.
+    """
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    mesh: Any = None
+
+    def decode_kv_shard(self, cfg) -> str:
+        """"heads" (every rank holds every position) or "seq" (each rank
+        a slice of the positions). "auto" shards the sequence when the
+        model axis outnumbers the KV heads."""
+        mode = self.parallel.decode_kv_shard
+        if mode != "auto":
+            return mode
+        if self.mesh is None or AXIS_MODEL not in self.mesh.axis_names:
+            return "heads"
+        return ("heads" if cfg.n_kv_heads >= self.mesh.shape[AXIS_MODEL]
+                else "seq")
+
+    def seq_window(self, cfg, max_len: int) -> tuple[int, int] | None:
+        """The positions [start, stop) of a ``max_len`` cache that this
+        rank holds under "seq", or None when it holds them all."""
+        if self.decode_kv_shard(cfg) != "seq" or self.mesh is None:
+            return None
+        n = self.mesh.shape.get(AXIS_MODEL, 1)
+        if max_len % n:
+            raise ValueError(f"max_len ({max_len}) must divide over the "
+                             f"{n} ranks of the model axis under "
+                             "decode_kv_shard='seq'")
+        i = self.mesh.coords.get(AXIS_MODEL, 0)
+        return i * (max_len // n), (i + 1) * (max_len // n)
 
 
 class LM(nn.Module):
@@ -220,17 +265,17 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- serve
     @torch.no_grad()
-    def prefill(self, batch):
+    def prefill(self, batch, rt: Runtime | None = None):
         """Full-sequence forward; returns (last_logits (B, [ncb,] Vp),
         caches {"pos{i}": ...} in the module's layouts with B rows and, for
-        attention, S positions)."""
+        attention, S positions), on every rank of ``rt``'s mesh."""
         x = self.embed(batch)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
         per_pos = [[] for _ in range(self.period)]
         for layer in self._layers:
             for i, p in enumerate(layer):
-                x, cache = block_apply(p, self.cfg, x, positions, i)
+                x, cache = block_apply(p, self.cfg, x, positions, i, rt=rt)
                 per_pos[i].append(cache)
         x = rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps)
         logits = self.logits(x[:, -1:])
@@ -239,13 +284,18 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def decode(self, tokens, lengths, caches, page_table=None, *,
-               full=None, block_s: int = DECODE_BLOCK_S):
+               rt: Runtime | None = None, full=None,
+               block_s: int = DECODE_BLOCK_S):
         """tokens: (B, 1[, ncb]); lengths: (B,) int32 current cache fill on
         the device; page_table: (B, pages_per_row) int32 for paged caches.
         ``full``: None when no row's length equals its capacity, else a
         (B,) bool tensor on the device marking those rows, which then
         write nothing (``attn_block``). ``block_s``: the contiguous decode
-        kernel's split.
+        kernel's split. ``rt``: the runtime; under its "seq" mode each
+        contiguous attention cache is this rank's slice of the positions
+        (``Runtime.seq_window``). A page pool is never sliced: the
+        ``Engine`` refuses paged KV under "seq", and this pass trusts its
+        callers to have done so.
 
         Writes each row's new K/V, conv tails and SSM state into ``caches``
         in place and returns (logits (B, [ncb,] Vp), caches).
@@ -255,9 +305,10 @@ class LM(nn.Module):
         for r, layer in enumerate(self._layers):
             for i, p in enumerate(layer):
                 cache = tree_map(lambda t, r=r: t[r], caches[f"pos{i}"])
-                x, _ = block_apply(p, self.cfg, x, positions, i, cache=cache,
-                                   lengths=lengths, page_table=page_table,
-                                   full=full, block_s=block_s)
+                x, _ = block_apply(p, self.cfg, x, positions, i, rt=rt,
+                                   cache=cache, lengths=lengths,
+                                   page_table=page_table, full=full,
+                                   block_s=block_s)
         x = rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps)
         return self.logits(x)[:, 0], caches
 
@@ -268,12 +319,15 @@ class LM(nn.Module):
         return self.cfg.block_kind(int(key.removeprefix("pos")))
 
     def splice(self, caches, pre, slot: int, row: int, *, pages=None,
-               page_size: int | None = None) -> None:
+               page_size: int | None = None,
+               window: tuple[int, int] | None = None) -> None:
         """Copy row ``row`` of prefill caches ``pre`` into ``slot`` of
         ``caches``, in place: attention K/V (P positions) into the slot's
         first P rows, or with ``pages`` (the slot's page ids, in order)
-        into its pages; Mamba2 conv tails and state into ``[:, slot]`` in
-        both modes."""
+        into its pages, or with ``window`` (start, stop), a rank's slice of
+        the positions under "seq", the prefill's positions in it into the
+        slot's first rows; Mamba2 conv tails and state into ``[:, slot]``
+        in every mode."""
         for key, cache in caches.items():
             if self.cache_kind(key) != "attn":
                 conv, state = cache
@@ -284,6 +338,8 @@ class LM(nn.Module):
                 continue
             for dst, src in zip(cache, pre[key]):
                 src = src[:, row]                     # (R, P, KVH, hd)
+                if window is not None:
+                    src = src[:, window[0]:window[1]]
                 P = src.shape[1]
                 if pages is None:
                     dst[:, slot, :P].copy_(src)

@@ -1,11 +1,18 @@
 """Mixture-of-Experts routing and capacity dispatch (``repro.models.moe``).
 
-The port runs on one card, so the MoE layer is the JAX package's no-mesh
-path, ``_moe_local`` with every expert local: route each token to its
-top-k experts, fill each expert's ``C`` capacity slots in token-major,
-k-minor order, drop what overflows, run the three expert products through
-the grouped-GEMM kernel (``kernels.ops.gmm``) and add the gated outputs
-back into their tokens in a fixed order.
+``moe_apply`` is the reference's ``_moe_local``: route each token to
+its top-k experts, fill each expert's ``C`` capacity slots in
+token-major, k-minor order, drop what overflows, run the three expert
+products through the grouped-GEMM kernel (``kernels.ops.gmm``) and add
+the gated outputs back into their tokens in a fixed order. On one rank
+every expert is local. Under a mesh whose ``model`` axis divides the
+experts, each rank holds the E / n experts that ``resolve_spec`` gives it
+(``"experts": "model"``), takes its range of the same dispatch, and the
+ranks' partial outputs add up in one all-reduce over ``model``: the
+reference's expert parallelism with tokens replicated and a ``psum``
+combine. When the batch divides over the batch axes, each rank
+dispatches only its rows, and C counts them, as the reference's
+per-shard capacity does; the rows then all-gather.
 
 Training runs ``moe_train``: the same routing, capacity and drops, with
 the three expert products as plain batched products (the kernel is
@@ -27,6 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.collectives import all_gather, all_reduce, batch_rows
+from repro_torch.parallel.sharding import AXIS_MODEL, mesh_axis_size
 
 
 def route(p, cfg, x):
@@ -92,35 +101,66 @@ def _experts(p, cfg, xe, gate, product):
     return (ye.float() * gate).to(xe.dtype)
 
 
-def moe_apply(p, cfg, x, ids, wts):
+def moe_apply(p, cfg, x, ids, wts, mesh=None):
     """x: (B, S, d); ids, wts: (B, S, K) from ``route``. Returns (B, S, d)
-    in x's dtype: the gated sum of each token's kept experts."""
+    in x's dtype: the gated sum of each token's kept experts.
+
+    With ``mesh`` (``launch.mesh.Mesh``) whose ``model`` axis of n ranks
+    divides E, ``p``'s expert weights are this rank's E / n experts (as
+    ``bridge`` shards them) and the result is the all-reduce over
+    ``model`` of every rank's share; otherwise every expert is local."""
+    E = cfg.n_experts
+    n = mesh_axis_size(mesh, AXIS_MODEL) if mesh is not None else 1
+    if n == 1 or E % n:
+        return _moe_local(p, cfg, x, ids, wts, 0, E)
+    n_local = E // n
+    rows = batch_rows(mesh, x.shape[0])
+    b = rows[0] if rows else slice(None)
+    y = _moe_local(p, cfg, x[b], ids[b], wts[b],
+                   mesh.coords[AXIS_MODEL] * n_local, n_local)
+    y = all_reduce(y, mesh.group(AXIS_MODEL))
+    return all_gather(y, 0, rows[1]) if rows else y
+
+
+def _moe_local(p, cfg, x, ids, wts, lo: int, n_local: int):
+    """The experts [lo, lo + n_local) of the call's dispatch, whose
+    weights ``p`` holds: their gated outputs added into each token, in x's
+    dtype. C counts this call's B * S rows."""
     B, S, d = x.shape
     T, K, E = B * S, cfg.top_k, cfg.n_experts
+    if p["w_in"].shape[0] != n_local:
+        raise ValueError(f"moe: {n_local} local experts, but the weights "
+                         f"hold {p['w_in'].shape[0]}")
     tok, slot, kept = dispatch(ids, cfg)
     C = tok.shape[1]
+    idf = ids.reshape(T * K)
+    flat = idf * C + slot
     gate = torch.zeros(E * C, dtype=torch.float32, device=x.device)
-    gate[(ids.reshape(T * K) * C + slot)[kept]] = wts.reshape(
-        T * K).float()[kept]
+    gate[flat[kept]] = wts.reshape(T * K).float()[kept]
+    gate = gate.reshape(E, C, 1)
+    if n_local < E:
+        # this rank's range of the table; another rank's slots drop here
+        tok, gate = tok[lo:lo + n_local], gate[lo:lo + n_local]
+        kept = kept & (idf >= lo) & (idf < lo + n_local)
+        flat = flat - lo * C
     xf = x.reshape(T, d)
     valid = tok < T
     xe = torch.where(valid[..., None], xf[tok.clamp(max=T - 1)], 0)
     # an expert's kept slots are a prefix of its C rows: the count says
     # which rows the products need (the rest are zero: silu(0) * 0 and
     # relu(0)^2 keep h's zero too), so an empty expert reads no weight
-    counts = valid.sum(dim=1, dtype=torch.int32)           # (E,), no sync
-    ye = _experts(p, cfg, xe, gate.reshape(E, C, 1),
-                  lambda a, w: ops.gmm(a, w, counts))
+    counts = valid.sum(dim=1, dtype=torch.int32)      # (n_local,), no sync
+    ye = _experts(p, cfg, xe, gate, lambda a, w: ops.gmm(a, w, counts))
     # Combine: each token's kept outputs, added one at a time in x's dtype
     # in table order (experts ascending), the order in which the
     # reference's scatter-add applies them. A fixed order: index_add_ on
     # the card adds in whatever order its atomics land, which changes the
     # bf16 sum of three or more outputs (top-8) from run to run.
     order = torch.argsort(ids.reshape(T, K), dim=1)
-    at = torch.gather((ids.reshape(T * K) * C + slot).reshape(T, K), 1, order)
+    at = torch.gather(flat.reshape(T, K), 1, order)
     keep = torch.gather(kept.reshape(T, K), 1, order)
-    at = torch.where(keep, at, 0)       # a dropped slot may lie past E * C
-    parts = torch.where(keep[..., None], ye.reshape(E * C, d)[at], 0)
+    at = torch.where(keep, at, 0)       # a dropped slot may lie past the table
+    parts = torch.where(keep[..., None], ye.reshape(n_local * C, d)[at], 0)
     y = torch.zeros(T, d, dtype=x.dtype, device=x.device)
     for k in range(K):
         y = y + parts[:, k]

@@ -1,0 +1,22 @@
+"""Serving across ranks on ``torch.distributed`` (``repro.parallel``).
+
+``sharding`` holds the logical-axis placement rules and ``collectives``
+the explicit collectives of the serving path: sequence-sharded decode
+attention and ring prefill attention; expert parallelism lives in
+``models.moe.moe_apply``. The mesh comes from ``launch.mesh``.
+
+The reference's ``compat.py`` only bridges JAX API versions (and
+``tpu_compiler_params``), so it has no counterpart. Its training half,
+``compression.py`` (int8 cross-pod gradient all-reduce), is not ported
+yet: the port trains on one card.
+"""
+from repro_torch.parallel.sharding import (  # noqa: F401
+    AXIS_DATA,
+    AXIS_MODEL,
+    AXIS_POD,
+    batch_axes,
+    logical_rules,
+    mesh_axis_size,
+    resolve_spec,
+    spec_tree,
+)

@@ -23,6 +23,15 @@ JAX engine donates buffers to jit. Slot bookkeeping stays in NumPy on the
 host. A finished slot's length goes back to 0, so the decode step's write
 for an inactive row stays inside its (null) cache row: torch raises on an
 out-of-range index where JAX's scatter drops the write.
+
+With a runtime whose mesh spans several ranks (``rt``, as the JAX engine
+takes one), every rank runs this engine on the same requests: the host
+bookkeeping (lengths, slots, finish order, the length reset) is the same
+on every rank, the forward passes run their collectives
+(``models.blocks``), and every rank returns the same finished requests.
+Under ``decode_kv_shard`` "seq" each rank's contiguous cache holds its
+``max_len / n`` positions and a prefill splice writes each rank's slice;
+paged KV then raises, as in the reference.
 """
 from __future__ import annotations
 
@@ -32,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.blocks import DECODE_BLOCK_S
-from repro_torch.models.lm import LM, resolve_device
+from repro_torch.models.lm import LM, Runtime, resolve_device
 from repro_torch.serve.paged import PagedKVAllocator
 
 
@@ -54,16 +63,22 @@ class Engine:
     exact size. ``decode_block_s``: the cache positions each split of the
     contiguous decode kernel sweeps (a paged engine splits by page); with
     it equal to another engine's ``page_size`` the two decode bit for bit
-    alike. ``device`` must be the LM's; ``None`` means the card."""
+    alike. ``device`` must be the LM's; ``None`` means the card. ``rt``:
+    the runtime (``models.lm.Runtime``), None for one rank; its mesh must
+    live on the LM's device."""
 
-    def __init__(self, lm: LM, *, max_batch: int, max_len: int,
-                 prefill_chunk: int | None = None,
+    def __init__(self, lm: LM, *, rt: Runtime | None = None, max_batch: int,
+                 max_len: int, prefill_chunk: int | None = None,
                  page_size: int | None = None,
                  decode_block_s: int = DECODE_BLOCK_S, device=None):
         self.device = resolve_device(device)
         if lm.device != self.device:
             raise ValueError(f"LM lives on {lm.device}, engine on "
                              f"{self.device}")
+        self.rt = rt or Runtime()
+        if self.rt.mesh is not None and self.rt.mesh.device != self.device:
+            raise ValueError(f"mesh lives on {self.rt.mesh.device}, engine "
+                             f"on {self.device}")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         self.prefill_chunk = prefill_chunk
@@ -74,9 +89,16 @@ class Engine:
         self.lengths = np.zeros((max_batch,), np.int32)
         self.active: dict[int, Request] = {}     # slot -> request
         self.free = list(range(max_batch))
+        if page_size is not None and self.rt.decode_kv_shard(lm.cfg) == "seq":
+            raise ValueError(
+                "paged KV is incompatible with decode_kv_shard='seq'")
+        # this rank's positions of each slot's cache under "seq"
+        self.window = self.rt.seq_window(lm.cfg, max_len)
         if page_size is None:
             self.pager = None
-            self.caches = lm.init_cache(max_batch, max_len)
+            self.caches = lm.init_cache(
+                max_batch, max_len if self.window is None
+                else self.window[1] - self.window[0])
         else:
             if page_size < 1 or max_len % page_size:
                 raise ValueError(
@@ -171,7 +193,7 @@ class Engine:
                 prows.extend([prows[-1]] * (pad_to - k))
             batch["patches"] = self._to_device(np.stack(prows))
         n_img = self.lm.cfg.n_patches if has_patches else 0
-        logits, pre_caches = self.lm.prefill(batch)
+        logits, pre_caches = self.lm.prefill(batch, rt=self.rt)
         self.prefills += 1
         toks = torch.argmax(logits, dim=-1)[:k].cpu().numpy().astype(np.int32)
         slots = np.array([s for s, _ in members])
@@ -179,7 +201,7 @@ class Engine:
             self.lm.splice(self.caches, pre_caches, slot, i,
                            pages=None if self.pager is None
                            else self._page_table[slot],
-                           page_size=self.page_size)
+                           page_size=self.page_size, window=self.window)
             self.active[slot] = req
             req.out_tokens.append(toks[i])
         self.lengths[slots] = plen + n_img
@@ -207,7 +229,7 @@ class Engine:
         full = self.lengths >= self.max_len
         logits, self.caches = self.lm.decode(
             self._to_device(toks), self._to_device(self.lengths),
-            self.caches, page_table=table,
+            self.caches, page_table=table, rt=self.rt,
             full=self._to_device(full) if full.any() else None,
             block_s=self.decode_block_s)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)

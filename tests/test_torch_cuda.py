@@ -665,3 +665,164 @@ def test_one_bf16_train_step_of_a_two_layer_musicgen(card):
     assert met["grad_norm"].item() > 0
     for path, t in tree_leaves(state.params):
         assert torch.isfinite(t).all(), path
+
+
+# ------------------------------------------------- serving across ranks
+# One world of 2 processes per backend, started once: gloo with both
+# ranks on the one card (NCCL refuses two ranks on one card), and NCCL
+# with a card a rank. Each rank runs the cases on its share and writes
+# its results: the collectives beside the single-rank kernels on the same
+# inputs (``parallel.check``), and expert-parallel MoE, which the test
+# holds against the single-rank ``moe_apply`` here.
+_RANKS = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_smoke_config
+import dataclasses
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.moe import moe_apply
+from repro_torch.parallel.check import collectives_against_kernels
+
+rank, world, port, backend, work = (int(sys.argv[1]), int(sys.argv[2]),
+                                    int(sys.argv[3]), sys.argv[4], sys.argv[5])
+dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=world)
+dev = torch.device("cuda", 0 if backend == "gloo" else rank)
+mesh = make_mesh(1, world, device=dev)
+c = {k: v.to(dev) for k, v in torch.load(f"{work}/case.pt").items()}
+cfg = dataclasses.replace(get_smoke_config("arctic-480b"), dtype="bfloat16")
+n, i = world, mesh.coords["model"]
+E = cfg.n_experts
+p = {w: c[w][i * E // n:(i + 1) * E // n].contiguous()
+     for w in ("w_in", "w_gate", "w_out")}
+ops.reset_launch_counts()
+out = {"moe": moe_apply(p, cfg, c["x"], c["ids"], c["wts"], mesh=mesh)}
+gmm = ops.launch_counts()["moe_gmm"]
+out.update(collectives_against_kernels(
+    mesh, *(c[w] for w in ("q", "k", "v", "lengths", "new_k", "new_v",
+                           "rq", "rk", "rv"))))
+caches_equal = out.pop("caches_equal")
+torch.save({k: v.cpu() for k, v in out.items()}, f"{work}/out{rank}.pt")
+json.dump({"moe_gmm": gmm, "local_experts": p["w_in"].shape[0],
+           "caches_equal": caches_equal,
+           "backend": dist.get_backend(), "device": str(mesh.device)},
+          open(f"{work}/meta{rank}.json", "w"))
+dist.destroy_process_group()
+"""
+
+
+def _rank_case():
+    """Arctic's smoke MoE layer in bf16 (top-2, 8 experts), a GQA decode
+    with a row at the cache's end, and a GQA ring prefill, on the CPU."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import tree_map
+    cfg = dataclasses.replace(get_smoke_config("arctic-480b"),
+                              dtype="bfloat16")
+    p = tree_map(lambda t: t[0], init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu")["blocks"]["pos0"])
+    g = torch.Generator().manual_seed(3)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g).to(torch.bfloat16)
+
+    B, H, KVH, hd, S = 4, 8, 2, 64, 256
+    return cfg, p["moe"], {
+        "x": r(4, 24, cfg.d_model), **{w: p["moe"][w] for w in
+                                        ("w_in", "w_gate", "w_out")},
+        "q": r(B, H, hd), "k": r(B, S, KVH, hd), "v": r(B, S, KVH, hd),
+        "lengths": torch.tensor([0, 77, 200, S], dtype=torch.int32),
+        "new_k": r(B, KVH, hd), "new_v": r(B, KVH, hd),
+        "rq": r(2, 128, H, hd), "rk": r(2, 128, KVH, hd),
+        "rv": r(2, 128, KVH, hd)}
+
+
+_WORLDS = {}
+
+
+def _world(backend, tmp_path_factory):
+    """(case, router output, each rank's outputs and meta) of the world of
+    2 over ``backend``, run once."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.models.moe import route
+    if backend in _WORLDS:
+        return _WORLDS[backend]
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip("NCCL puts one rank on a card: needs two cards")
+    cfg, p, case = _rank_case()
+    ids, wts, _ = route({"router": p["router"].cuda()}, cfg,
+                        case["x"].cuda())
+    case.update(ids=ids.cpu(), wts=wts.cpu())
+    work = tmp_path_factory.mktemp(f"ranks_{backend}")
+    torch.save(case, work / "case.pt")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANKS, str(r), "2", str(port), backend,
+         str(work)], env=env, cwd=root, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        for proc in procs:
+            _, err = proc.communicate(timeout=300)
+            assert proc.returncode == 0, err[-4000:]
+    finally:
+        for proc in procs:
+            proc.kill()
+    outs = [torch.load(work / f"out{r}.pt") for r in range(2)]
+    metas = [json.loads((work / f"meta{r}.json").read_text())
+             for r in range(2)]
+    _WORLDS[backend] = (cfg, p, case, outs, metas)
+    return _WORLDS[backend]
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_expert_parallel_moe_equals_single_rank_bitwise(card, backend,
+                                                        tmp_path_factory):
+    """Top-2 over 2 ranks of 4 experts each: a token's output is the same
+    two bf16 terms the single-rank combine adds, so equal bit for bit."""
+    from repro_torch.models.lm import tree_map
+    from repro_torch.models.moe import moe_apply
+    cfg, p, case, outs, metas = _world(backend, tmp_path_factory)
+    want = moe_apply(tree_map(lambda t: t.cuda(), p), cfg, case["x"].cuda(),
+                     case["ids"].cuda(), case["wts"].cuda()).cpu()
+    for out, meta in zip(outs, metas):
+        assert meta["backend"] == backend and meta["local_experts"] == 4
+        assert meta["moe_gmm"] == 3
+        assert torch.equal(out["moe"], want)
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_seq_sharded_decode_within_bf16_of_the_decode_kernel(
+        card, backend, tmp_path_factory):
+    """The sequence-sharded cache's partials merged across 2 ranks against
+    the decode kernel on the whole cache; the row at the cache's end
+    writes nothing, on both (``parallel.check``)."""
+    _, _, _, outs, metas = _world(backend, tmp_path_factory)
+    for out, meta in zip(outs, metas):
+        assert meta["caches_equal"]
+        _close(out["decode"], out["decode_want"], torch.bfloat16)
+        assert torch.equal(out["decode"], outs[0]["decode"])
+        assert torch.equal(out["decode_want"], outs[0]["decode_want"])
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_ring_prefill_within_bf16_of_the_flash_kernel(card, backend,
+                                                      tmp_path_factory):
+    _, _, _, outs, _ = _world(backend, tmp_path_factory)
+    for out in outs:
+        _close(out["ring"], out["ring_want"], torch.bfloat16)
+        assert torch.equal(out["ring"], outs[0]["ring"])
+        assert torch.equal(out["ring_want"], outs[0]["ring_want"])

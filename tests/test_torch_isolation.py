@@ -7,7 +7,8 @@
   import ``msgpack``, which the card is not known to have: the
   checkpoints pack their manifest themselves.
 - Entry points run on the card unless the caller passes ``device="cpu"``:
-  without a card they raise instead of quietly using the CPU.
+  without a card they raise instead of quietly using the CPU. So does the
+  mesh factory (``launch.mesh``).
 - The kernel builder raises without nvcc; the kernel wrappers raise on
   CPU tensors; on CPU tensors no launch is ever counted.
 - The copied configs and shape cells equal the JAX package's, field for
@@ -127,6 +128,53 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                           provision=ProvisionService())
     ElasticController(policy=MgmtPolicy.htc(1, 1.0),
                       provision=ProvisionService(), devices=["cpu"] * 2)
+
+
+def test_mesh_factory_runs_on_the_card_by_default(monkeypatch):
+    """``make_mesh`` and ``make_production_mesh`` take the card unless
+    asked for the CPU, and raise without one, before they touch the
+    process group; on the CPU a world of one rank serves with no launch
+    counted, and the production meshes refuse a world of another size."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    from repro_torch.models.lm import Runtime
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_production_mesh(multi_pod=True)
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        make_mesh(1, 1, device="cpu")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1, device="cpu")
+        assert (mesh.axis_names, mesh.shape, mesh.coords, mesh.device) == (
+            ("data", "model"), {"data": 1, "model": 1},
+            {"data": 0, "model": 0}, torch.device("cpu"))
+        with pytest.raises(ValueError, match="needs 256 ranks"):
+            make_production_mesh(device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh(1, 1)
+        ops.reset_launch_counts()
+        cfg = tconfigs.get_smoke_config("arctic-480b")
+        lm = LM(cfg, init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu", mesh=mesh), device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Engine(lm, rt=Runtime(mesh=mesh), max_batch=2, max_len=16)
+        eng = Engine(lm, rt=Runtime(mesh=mesh), max_batch=2, max_len=16,
+                     device="cpu")
+        done = eng.run([Request(rid=0, tokens=np.arange(1, 6, dtype=np.int32),
+                                max_new_tokens=3)])
+        assert len(done[0].out_tokens) == 3
+        assert sum(ops.launch_counts().values()) == 0
+    finally:
+        dist.destroy_process_group()
 
 
 def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
