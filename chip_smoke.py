@@ -8,10 +8,12 @@ without its final line:
 1. device: the card's name and power limit; TF32 off for matmul and cuDNN.
 2. build: nvcc builds the kernels from ``src/repro_torch/kernels/csrc``.
 3. kernels: each kernel against its plain PyTorch version on the card,
-   bf16 and fp32: flash at musicgen-large, qwen2-7b and kimi-k2 (hd 112)
-   widths (ragged lengths); decode at G 1, 2, 7 and 8 over the head dims
-   and G 1, 7 and 8 at hd 112 (musicgen, qwen2, arctic and kimi-k2 heads
-   among them), each with a row of length 0, one
+   bf16 and fp32: flash at musicgen-large, qwen2-7b, kimi-k2 (hd 112)
+   and qwen3-14b's 20 heads a rank under tensor parallelism (ragged
+   lengths); decode at G 1, 2, 5, 7 and 8 over the head dims and G 1, 7
+   and 8 at hd 112 (musicgen, qwen2, qwen3 whole and at 20/4 heads a
+   rank, arctic and kimi-k2 heads among them), each with a row of length
+   0, one
    at cap and rows ending mid-split, shuffled pages, paged == contiguous
    bit for bit and two calls of each equal bit for bit; decode and paged
    decode at the dsp fleet's shape (musicgen's heads, page size 8, a
@@ -19,15 +21,18 @@ without its final line:
    of every arctic-480b and jamba-smoke prefill group and decode step
    (every instance: C tile, 16-byte or element-wise loads, split over d
    or not), ssd_scan at every mamba2-1.3b and jamba-smoke prefill group
-   shape, grouped, and at each (hp, ds) instance; then the device
+   shape, at mamba2's 32 heads a rank under tensor parallelism, grouped,
+   and at each (hp, ds) instance; then the device
    kernels one call of each wrapper runs at phase 5's shapes
    (torch.profiler). After arctic's and kimi-k2's serve runs, moe_gmm
    with the filled counts of a decode step and of the largest prefill
    group, from ``route`` + ``dispatch`` on the path's weights (rows past
    a count must be exact zero).
-4. serve: five paths, one model resident at a time (weights from a
+4. serve: six paths, one model resident at a time (weights from a
    seeded ``torch.Generator``): musicgen-large at full width and depth,
-   mamba2-1.3b at full width and depth, arctic-480b at full width cut to
+   mamba2-1.3b at full width and depth, qwen3-14b at full width and depth
+   (27.51 GiB of bf16 weights: the first full-size dense GQA model with
+   QK-norm), arctic-480b at full width cut to
    2 of its 35 layers (its 128 experts take 26.8 GB a layer), kimi-k2 at
    published widths cut to 1 of its 61 layers (hd 112; its 384 experts
    take 33.8 GB a layer), and jamba-1.5-large at its smoke config (a
@@ -40,17 +45,25 @@ without its final line:
    every C and weight of the path must pick the bf16 tensor-core design
    with 16-byte loads. A 2-layer cut of musicgen
    and of mamba2 at full width in fp32 is held against the CPU's plain
-   path.
+   path. The contiguous runs of qwen3, mamba2 and arctic record their
+   first decode step for the parallel phase.
 parallel. serving across ranks (``repro_torch.parallel``): a world of 2
-   ranks on the card over gloo (``torch.multiprocessing.spawn``), arctic's
-   2-layer cut with 64 of its 128 experts a rank, phase 4's weights and
-   requests. Run (A), experts split and attention replicated, must give
-   phase 4's contiguous tokens and finish order bit for bit; run (B) adds
-   the sequence-sharded decode cache and ring prefill, and each rank
-   holds those two collectives at the path's shapes against the decode
-   and flash kernels. Per rank: launches, prefill ms a group, decode ms a
-   step, peak device memory, backend; (B)'s logits and tokens against
-   (A)'s.
+   ranks on the card over gloo (``torch.multiprocessing.spawn``), phase
+   4's weights (each rank draws the whole stream and keeps its slices)
+   and requests. (T1) qwen3-14b at full width and depth, tensor-parallel
+   (heads, MLP and vocab halved: 13.76 GiB a rank), contiguous and paged,
+   equal tokens; (T3) mamba2-1.3b at full width and depth, its 64 SSM
+   heads split 32 a rank; (A) arctic's 2-layer cut, tensor- and
+   expert-parallel (64 of 128 experts a rank); each held against phase
+   4's first decode step by ``check_tp_run``. (B) adds to (A) the
+   sequence-sharded decode cache and ring prefill (attention whole), held
+   against (A) by ``check_seq_run``, with its two collectives at the
+   path's shapes against the decode and flash kernels. (T2) 2-layer fp32
+   cuts of qwen3 and mamba2 at published widths against one rank on the
+   card. The launch counters and the head counts each kernel saw show
+   every step through the kernels at the rank's heads. Per rank:
+   backend, bytes held against the whole model, peak memory, prefill ms
+   a group and decode ms a step beside phase 5's one-rank numbers.
 dsp. the DSP control plane on musicgen-large at full width and depth
    (``benchmarks/torch_serve_fleet.py``, max_batch 8, max_len 48): a
    ``ServeDriver`` on one Montage DAG (paged), equal to its
@@ -65,7 +78,9 @@ dsp. the DSP control plane on musicgen-large at full width and depth
    peak device memory and the device-busy share of a decode step under
    torch.profiler; then CUDA-event times of each kernel, its plain
    version and, where one PyTorch call computes the same function, that
-   call, at the shapes of phase 4, beside the least time the card could
+   call, at the shapes of phase 4 and of the tensor-parallel runs (flash,
+   decode and paged decode at qwen3's 20/4 heads a rank, ssd_scan at
+   mamba2's 32), beside the least time the card could
    take, and the device kernels per call from phase 3: flash at
    musicgen's, arctic's and kimi-k2's heads (SDPA pinned to its flash
    backend), decode and paged decode at the same three (SDPA with a
@@ -111,6 +126,7 @@ object with one entry per kernel, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -152,6 +168,8 @@ ARCH = "musicgen-large"
 PATHS = (
     ("musicgen-large", None, False, "full width and depth"),
     ("mamba2-1.3b", None, False, "full width and depth"),
+    ("qwen3-14b", None, False, "full width and depth: 40 layers, 40/8 "
+     "heads x 128 with QK-norm, 27.51 GiB of bf16 weights"),
     ("arctic-480b", 2, False, "full width, depth cut to 2 of 35 layers: "
      "each layer's 128 experts are 26.8 GB"),
     ("kimi-k2-1t-a32b", 1, False, "published widths, depth cut to 1 of 61 "
@@ -164,12 +182,24 @@ PATHS = (
 )
 N_REQ, PLENS, NEW_TOKENS = 16, (128, 256, 512), 32
 MAX_BATCH, MAX_LEN = 8, 1024
-# the parallel phase: phase 4's arctic cut, experts over 2 ranks of a mesh
-# (1, 2); run (A) experts only, run (B) with the sequence-parallel branches
+# the parallel phase: a mesh (1, 2) of two ranks on the card. Each run:
+# (name, arch, layers kept or None, ParallelConfig overrides, engine
+# modes); phase 4 records the first decode step of each arch's
+# contiguous run, which ``check_tp_run`` holds the run against, and (B)
+# is held against (A)
 PARALLEL_WORLD = 2
-PARALLEL_PATH = ("arctic-480b", 2, False)
-PARALLEL_RUNS = (("A", {}),
-                 ("B", {"decode_kv_shard": "seq", "attn_seq_parallel": True}))
+PARALLEL_RUNS = (
+    ("T1", "qwen3-14b", None, {}, ("contiguous", "paged")),
+    ("T3", "mamba2-1.3b", None, {}, ("contiguous",)),
+    ("A", "arctic-480b", 2, {}, ("contiguous",)),
+    ("B", "arctic-480b", 2, {"decode_kv_shard": "seq",
+                             "attn_seq_parallel": True}, ("contiguous",)),
+)
+RECORDED = {arch for _, arch, _, _, _ in PARALLEL_RUNS}
+# (T2) and T3's cut: published widths, 2 layers, fp32, against one rank
+TP_CUTS = ("qwen3-14b", "mamba2-1.3b")
+# qwen3-14b over 2 ranks: half of every leaf but the norms
+T1_GIB = 13.76
 # (B)'s first decode step against (A)'s, on the rows whose fed token and
 # every MoE layer's experts agree: their logits move only by bf16 rounding
 # (ring against flash, the sequence-sharded partials against the decode
@@ -177,6 +207,17 @@ PARALLEL_RUNS = (("A", {}),
 # row whose near-tied top-2 flips moves by units (5.24) and is left out,
 # but at least half the rows must keep their experts.
 PARALLEL_LOGITS_TOL = 0.25
+# a tensor-parallel run's first window's prefill (every row) and first
+# decode step (the rows whose fed token, experts and greedy token agree)
+# against one rank's: bf16 rounding of the row-parallel sums moves them,
+# by 0.1094 (qwen3, both), 0.0859 and 0.0791 (arctic) and 0.7344 and
+# 0.7695 (mamba2) on the H100; each limit is about 3x its arch's largest
+# clean reading, and the planted faults read 5.4-7.2 (PERF.md §6).
+# mamba2's 48 bf16 layers carry the rounding furthest: its near-tied
+# greedy tokens flip (1 of its 3 rows with an agreeing fed token kept
+# its greedy token), so its decode rows need only their fed token
+TP_LOGITS_TOL = {"qwen3-14b": 0.33, "mamba2-1.3b": 2.3, "arctic-480b": 0.26}
+TP_GREEDY = {"qwen3-14b", "arctic-480b"}
 
 
 class SmokeError(RuntimeError):
@@ -313,9 +354,13 @@ def phase_kernels():
         ("kimi hd=112 S=1", 64, 1, 1, 112, True),
         ("kimi hd=112 S=40", 2 * 64, 40, 40, 112, True),
         ("kimi hd=112 S=512", 64, 512, 512, 112, True),
+        # qwen3-14b's 20 heads a rank under tensor parallelism: the
+        # largest prefill group (2 prompts of 512) and a ragged one
+        ("qwen3 TP2 BH=2x20 S=512", 2 * 20, 512, 512, 128, True),
+        ("qwen3 TP2 BH=3x20 S=333", 3 * 20, 333, 333, 128, True),
     ]
-    # (label, B, H, KVH, hd, S, lengths): G 1, 2, 7 and 8 over the hds,
-    # G 1, 7 and 8 at hd 112;
+    # (label, B, H, KVH, hd, S, lengths): G 1, 2, 5, 7 and 8 over the
+    # hds, G 1, 7 and 8 at hd 112;
     # each case has a row of length 0, one at cap, and rows ending
     # mid-split
     decode_cases = [
@@ -331,6 +376,12 @@ def phase_kernels():
          [1024, 0, 128, 200, 513, 1, 896, 1000]),
         ("G=7 hd=112", 4, 28, 4, 112, 1024, [0, 300, 1024, 777]),
         ("G=1 hd=112", 4, 8, 8, 112, 512, [512, 0, 129, 77]),
+        # qwen3-14b's G 5 (bucket 8, 3 idle query slots): whole on one
+        # rank, and its 20/4 heads a rank under tensor parallelism
+        ("qwen3 G=5 hd=128", 8, 40, 8, 128, 1024,
+         [1024, 0, 128, 200, 513, 1, 896, 1000]),
+        ("qwen3 TP2 G=5 hd=128", 8, 20, 4, 128, 1024,
+         [0, 1, 127, 300, 540, 777, 1023, 1024]),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[str(dtype).split(".")[1]]
@@ -606,8 +657,9 @@ def ssd_inputs(B, S, nh, hp, ng, ds, dtype, gen):
 
 def check_ssd(gen):
     """ssd_scan at every prefill group shape of mamba2 (nh 64, hp 64, ds
-    128; chunk min(256, S)) and of jamba smoke, with grouped B/C, and at
-    the (hp, ds) instances no path runs: y and the final state."""
+    128; chunk min(256, S)), at its 32 heads a rank under tensor
+    parallelism, and of jamba smoke, with grouped B/C, and at the (hp, ds)
+    instances no path runs: y and the final state."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels.ref import ssd_scan_ref
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -619,6 +671,11 @@ def check_ssd(gen):
             cases.append((f"{label} S={S}", 3, S, cfg.n_ssm_heads,
                           cfg.ssm_head_dim, cfg.ssm_groups, cfg.d_state,
                           min(cfg.ssm_chunk, S)))
+    mamba2 = get_config("mamba2-1.3b")
+    for S in PLENS:                # 32 of its 64 heads a rank, TP 2
+        cases.append((f"mamba2 TP2 S={S}", 3, S, mamba2.n_ssm_heads // 2,
+                      mamba2.ssm_head_dim, mamba2.ssm_groups,
+                      mamba2.d_state, min(mamba2.ssm_chunk, S)))
     cases += [("grouped ng=2", 2, 512, 64, 64, 2, 128, 256),
               ("hp 16 ds 128", 1, 96, 4, 16, 2, 128, 48),
               ("hp 64 ds 16", 2, 48, 8, 64, 1, 16, 12)]
@@ -645,20 +702,86 @@ def make_requests(cfg, Request):
     ).astype(np.int32), max_new_tokens=NEW_TOKENS) for i in range(N_REQ)]
 
 
-def serve_run(lm, page_size):
+def serve_run(lm, page_size, record=False):
+    """Phase 4's requests through one engine. Returns (engine, finished
+    requests, launch counts, wall s, the first decode step's record
+    (``first_decode_recorded``) or None)."""
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import Engine, Request
     eng = Engine(lm, max_batch=MAX_BATCH, max_len=MAX_LEN,
                  page_size=page_size, device="cuda")
     reqs = make_requests(lm.cfg, Request)
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    done = eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    return eng, done, counts, wall
+    with (first_decode_recorded(lm) if record
+          else contextlib.nullcontext([])) as first:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    return eng, done, counts, wall, first[0] if first else None
+
+
+@contextlib.contextmanager
+def first_decode_recorded(lm):
+    """Inside, the first call of ``lm.decode`` appends to the yielded list
+    a record, on the host: the logits of every prefill before it (the
+    first admit window's groups, rows in call order), the step's fed
+    tokens and lengths, its embedding output, its logits, each MoE
+    layer's choice of experts (or None) and layer 0's K/V cache after it
+    (the rank's heads or positions; None without attention at pattern
+    position 0). Contiguous caches only. ``lm.prefill`` and ``lm.decode``
+    are wrapped by instance attributes, removed on the way out."""
+    from repro_torch.models import blocks
+    prefill, decode, route, embed = (lm.prefill, lm.decode, blocks.route,
+                                     lm.embed)
+    into, prefills = [], []
+
+    def pre(*args, **kw):
+        out = prefill(*args, **kw)
+        if not into:
+            prefills.append(out[0].float().cpu())
+        return out
+
+    def call(tokens, lengths, caches, *args, **kw):
+        if into:
+            return decode(tokens, lengths, caches, *args, **kw)
+        routed, embs = [], []
+
+        def rec_route(*a, **k):
+            ids, wts, aux = route(*a, **k)
+            routed.append(ids.cpu())
+            return ids, wts, aux
+
+        def rec_embed(*a, **k):
+            x = embed(*a, **k)
+            embs.append(x.to("cpu", copy=True))
+            return x
+
+        blocks.route, lm.embed = rec_route, rec_embed
+        try:
+            out = decode(tokens, lengths, caches, *args, **kw)
+        finally:
+            blocks.route = route
+            del lm.embed
+        rec = {"prefill": torch.cat(prefills),
+               "tokens": tokens.to("cpu", copy=True),
+               "lengths": lengths.to("cpu", copy=True), "emb": embs[0],
+               "logits": out[0].float().cpu(),
+               "ids": torch.stack(routed) if routed else None,
+               "k0": None, "v0": None}
+        if lm.cfg.block_kind(0) == "attn":
+            rec["k0"], rec["v0"] = (t[0].to("cpu", copy=True)
+                                    for t in caches["pos0"])
+        into.append(rec)
+        return out
+
+    lm.prefill, lm.decode = pre, call
+    try:
+        yield into
+    finally:
+        del lm.prefill, lm.decode
 
 
 def layer_kinds(cfg):
@@ -689,10 +812,12 @@ def path_config(arch, layers, smoke):
 
 
 def phase_serve(arch, layers, smoke, why, smi):
-    """Serve one path contiguous and paged, check it, time its engine;
-    returns its launch counts, its MoE counts (or None) and the contiguous
-    run's (rid, tokens) in finish order. Its weights are freed by the
-    caller."""
+    """Serve one path contiguous and paged, check it, time its engine.
+    Returns a namespace: ``counts`` (launches), ``moe_counts`` (or None),
+    ``served`` (the contiguous run's (rid, tokens) in finish order),
+    ``first`` (its first decode step, ``first_decode_recorded``, for the
+    archs the parallel phase runs; else None) and ``times`` (phase 5's
+    engine ms). Its weights are freed by the caller."""
     import numpy as np
     from repro_torch.bridge import init_params
     from repro_torch.models.blocks import DECODE_BLOCK_S
@@ -715,8 +840,11 @@ def phase_serve(arch, layers, smoke, why, smi):
     runs = {}
     tok_shape = (NEW_TOKENS, cfg.n_codebooks) if cfg.n_codebooks > 1 \
         else (NEW_TOKENS,)
+    first = None
     for mode, ps in (("contiguous", None), ("paged", DECODE_BLOCK_S)):
-        eng, done, counts, wall = serve_run(lm, ps)
+        eng, done, counts, wall, rec = serve_run(
+            lm, ps, record=ps is None and arch in RECORDED)
+        first = first or rec
         check(len(done) == N_REQ and not any(r.rejected for r in done),
               f"{cfg.name} {mode}: served {len(done)} of {N_REQ}")
         for r in done:
@@ -764,50 +892,62 @@ def phase_serve(arch, layers, smoke, why, smi):
               f"(C tile, 16-byte loads, split over d) {sorted(inst)}")
         if cfg.block_kind(0) == "attn" and cfg.is_moe_layer(0):
             moe_counts_by_t = moe_counts(lm)
-    time_engine(lm, smi)
-    phase(5, "times", f"{cfg.name}: peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+    times = time_engine(lm, smi)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    phase(5, "times", f"{cfg.name}: peak device memory {peak:.2f} GiB "
           f"(max_memory_allocated, weights {n_params * lm.dtype.itemsize / 2**30:.2f}"
           f" GiB); {smi}")
     served = [(r.rid, np.asarray(r.out_tokens).tolist())
               for r in runs["contiguous"][0]]
-    return ({k: runs["contiguous"][1][k] + runs["paged"][1][k]
-             for k in runs["contiguous"][1]}, moe_counts_by_t, served)
+    return SimpleNamespace(
+        counts={k: runs["contiguous"][1][k] + runs["paged"][1][k]
+                for k in runs["contiguous"][1]},
+        moe_counts=moe_counts_by_t, served=served,
+        first=first, times=dict(times, peak_gib=peak))
+
+
+def cut_config(arch):
+    """A 2-layer cut of ``arch`` at published widths, in fp32."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+
+
+def cut_logits(lm, rt=None):
+    """The prefill logits of 2 prompts of 128 tokens (numpy seed 3) and
+    one decode step's after it, at lengths 128 and 100, on the host; with
+    ``rt``, as one rank of its mesh."""
+    import numpy as np
+    cfg = lm.cfg
+    rng = np.random.default_rng(3)
+    ncb = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (2, 128) + ncb).astype(np.int32))
+    nxt = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (2, 1) + ncb).astype(np.int32))
+    logits, pre = lm.prefill({"tokens": toks}, rt=rt)
+    caches = lm.init_cache(2, 256, rt)
+    for row in range(2):
+        lm.splice(caches, pre, row, row)
+    lengths = torch.tensor([128, 100], dtype=torch.int32, device=lm.device)
+    dec, _ = lm.decode(nxt.to(lm.device), lengths, caches, rt=rt)
+    check(logits.shape == (2,) + ncb + (cfg.vocab_padded,),
+          f"prefill logits shape {tuple(logits.shape)}")
+    return {"prefill": logits.cpu(), "decode": dec.cpu()}
 
 
 def reference_check(arch):
     """A 2-layer cut at full width, fp32: card (kernels) vs CPU (plain)."""
-    import numpy as np
     from repro_torch.bridge import init_params
-    from repro_torch.configs import get_config
     from repro_torch.models.lm import LM, tree_map
 
-    small = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    small = cut_config(arch)
     params = init_params(small, torch.Generator(device="cuda").manual_seed(2),
                          "cuda")
-    lm_gpu = LM(small, params, device="cuda")
-    lm_cpu = LM(small, tree_map(lambda t: t.cpu(), params), device="cpu")
-    rng = np.random.default_rng(3)
-    ncb = (small.n_codebooks,) if small.n_codebooks > 1 else ()
-    toks = torch.from_numpy(rng.integers(
-        1, small.vocab_size, (2, 128) + ncb).astype(np.int32))
-    nxt = torch.from_numpy(rng.integers(
-        1, small.vocab_size, (2, 1) + ncb).astype(np.int32))
-    errs = []
-    for lm in (lm_gpu, lm_cpu):
-        logits, pre = lm.prefill({"tokens": toks})
-        caches = lm.init_cache(2, 256)
-        for row in range(2):
-            lm.splice(caches, pre, row, row)
-        lengths = torch.tensor([128, 100], dtype=torch.int32,
-                               device=lm.device)
-        dec, _ = lm.decode(nxt.to(lm.device), lengths, caches)
-        errs.append((logits.cpu(), dec.cpu()))
-    (pg, dg), (pc, dc) = errs
-    check(pg.shape == (2,) + ncb + (small.vocab_padded,),
-          f"prefill logits shape {tuple(pg.shape)}")
-    e_pre = max_err(pg, pc, REF_TOL)
-    e_dec = max_err(dg, dc, REF_TOL)
+    card = cut_logits(LM(small, params, device="cuda"))
+    cpu = cut_logits(LM(small, tree_map(lambda t: t.cpu(), params),
+                        device="cpu"))
+    e_pre = max_err(card["prefill"], cpu["prefill"], REF_TOL)
+    e_dec = max_err(card["decode"], cpu["decode"], REF_TOL)
     phase(4, "serve", f"reference {small.name}: 2-layer full-width fp32 cut, "
           f"card vs CPU plain path: prefill logits max abs err {e_pre:.3e}, "
           f"decode logits {e_dec:.3e} (tol {REF_TOL}); all finite")
@@ -815,7 +955,8 @@ def reference_check(arch):
 
 def time_engine(lm, name):
     """One admit window (timed prefill) and its decode steps, after an
-    untimed warm-up window of the same shapes; then a profiled step."""
+    untimed warm-up window of the same shapes; then a profiled step.
+    Returns the window's prefill ms a group and decode ms a step."""
     from repro_torch.serve.engine import Engine, Request
     cfg = lm.cfg
     first = [PLENS[i % len(PLENS)] for i in range(MAX_BATCH)]
@@ -835,13 +976,15 @@ def time_engine(lm, name):
     n_pre, n_steps = eng.prefills - p0, eng.steps - s0
     toks = MAX_BATCH * NEW_TOKENS
     cb = f" x {cfg.n_codebooks} codebooks" if cfg.n_codebooks > 1 else ""
+    pre_ms, step_ms = 1e3 * (t1 - t0) / n_pre, 1e3 * (t2 - t1) / n_steps
     phase(5, "times", f"engine {cfg.name} {cfg.dtype}, {MAX_BATCH} requests "
-          f"of prompts {first}: prefill {1e3 * (t1 - t0) / n_pre:.3f} ms per "
-          f"group ({n_pre} groups), decode {1e3 * (t2 - t1) / n_steps:.3f} ms"
+          f"of prompts {first}: prefill {pre_ms:.3f} ms per "
+          f"group ({n_pre} groups), decode {step_ms:.3f} ms"
           f" per step ({n_steps} steps of batch {MAX_BATCH}), "
           f"{toks / (t2 - t0):.1f} tok/s ({toks} tokens{cb}); {name}")
-    profile_steps(eng, make_requests(cfg, Request)[:MAX_BATCH],
-                  1e3 * (t2 - t1) / n_steps, name)
+    profile_steps(eng, make_requests(cfg, Request)[:MAX_BATCH], step_ms,
+                  name)
+    return {"prefill_ms": pre_ms, "decode_ms": step_ms}
 
 
 def profile_steps(eng, reqs, step_ms, name, n=4):
@@ -897,112 +1040,189 @@ def _timed(fn, into):
     return call
 
 
-def _parallel_rank(rank, world, port, out_dir):
-    """One rank of the parallel phase: ``torch.multiprocessing.spawn``'s
-    target, in a process of its own on the card. Draws arctic's 2-layer
-    cut with this rank's experts, serves phase 4's requests in runs (A)
-    and (B) and writes what the parent checks to ``out_dir``."""
-    sys.path.insert(0, str(ROOT / "src"))
+@contextlib.contextmanager
+def kernel_widths():
+    """{kernel: the set of widths its calls took} while inside: the query
+    heads of flash (through ``blocks.prefill_attention``), decode and
+    paged decode, the SSM heads of ssd_scan, the experts of moe_gmm."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks
+    seen = {k: set() for k in ops.launch_counts()}
+    taps = {(blocks, "prefill_attention"): ("flash_attention", 2),
+            (ops, "decode"): ("decode_attention", 1),
+            (ops, "paged_decode"): ("paged_decode_attention", 1),
+            (ops, "ssd"): ("ssd_scan", 2), (ops, "gmm"): ("moe_gmm", 0)}
+    saved = {}
+    for (mod, attr), (kern, dim) in taps.items():
+        fn = saved[(mod, attr)] = getattr(mod, attr)
+
+        def tap(x, *a, fn=fn, kern=kern, dim=dim, **k):
+            seen[kern].add(int(x.shape[dim]))
+            return fn(x, *a, **k)
+
+        setattr(mod, attr, tap)
+    try:
+        yield seen
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+
+
+def _tp_run(mesh, arch, layers, over, modes, first_path):
+    """One parallel run on this rank: draw the path's weights (phase 4's
+    seed) keeping this rank's slices, serve phase 4's requests in each
+    engine mode, check the launches, the widths each kernel saw and the
+    pages; the contiguous run's first decode step
+    (``first_decode_recorded``) goes to ``first_path``. Returns what the parent prints and checks."""
     import numpy as np
-    import torch.distributed as dist
-    from repro_torch.bridge import init_params
+    from repro_torch.bridge import init_params, meta_params
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import blocks
-    from repro_torch.models.lm import LM, Runtime, tree_leaves
+    from repro_torch.models.blocks import DECODE_BLOCK_S
+    from repro_torch.models.lm import LM, Runtime
+    from repro_torch.parallel.check import bytes_held
     from repro_torch.serve.engine import Engine, Request
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
-    try:
-        mesh = make_mesh(1, world, device="cuda")
-        cfg = path_config(*PARALLEL_PATH)
-        t0 = time.perf_counter()
-        gen = torch.Generator(device="cuda").manual_seed(0)  # phase 4's
-        params = init_params(cfg, gen, "cuda", mesh=mesh)
+    cfg = path_config(arch, layers, False)
+    parallel = ParallelConfig(**over)
+    rt = Runtime(parallel, mesh)
+    tp = rt.tensor(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda", mesh=mesh, parallel=parallel)
+    torch.cuda.synchronize()
+    lm = LM(cfg, params, device="cuda")
+    h0, h1 = tp.ssm_heads(cfg) if cfg.ssm else (0, 0)
+    n_exp = (cfg.n_experts // tp.n if cfg.moe and cfg.n_experts % tp.n == 0
+             else cfg.n_experts)
+    res = {"draw_s": time.perf_counter() - t0,
+           "held_gib": bytes_held(params) / 2**30,
+           "whole_gib": bytes_held(meta_params(cfg)) / 2**30,
+           "split": {"attention by heads": tp.attn, "vocab": tp.vocab,
+                     "ssm heads": tp.ssm, "mlp": tp.mlp(cfg.d_ff)},
+           "decode_kv_shard": rt.decode_kv_shard(cfg)}
+    for mode in modes:
+        ps = DECODE_BLOCK_S if mode == "paged" else None
+        eng = Engine(lm, rt=rt, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                     page_size=ps, device="cuda")
+        pre_s, step_s = [], []
+        eng._prefill_group = _timed(eng._prefill_group, pre_s)
+        eng.step = _timed(eng.step, step_s)
+        reqs = make_requests(cfg, Request)
         torch.cuda.synchronize()
-        lm = LM(cfg, params, device="cuda")
-        res = {"backend": dist.get_backend(), "device": str(mesh.device),
-               "coords": mesh.coords, "draw_s": time.perf_counter() - t0,
-               "local_experts": [int(p["moe"]["w_in"].shape[1])
-                                 for p in params["blocks"].values()],
-               "weights_gib": sum(t.numel() * t.element_size()
-                                  for _, t in tree_leaves(params)) / 2**30}
-        for run, over in PARALLEL_RUNS:
-            parallel = ParallelConfig(**over)
-            rt = Runtime(parallel, mesh)
-            eng = Engine(lm, rt=rt, max_batch=MAX_BATCH, max_len=MAX_LEN,
-                         device="cuda")
-            pre_s, step_s, first, routed = [], [], [], []
-            eng._prefill_group = _timed(eng._prefill_group, pre_s)
-            eng.step = _timed(eng.step, step_s)
-            decode, route = lm.decode, blocks.route
-
-            def recording_route(*args, **kw):
-                ids, wts, aux = route(*args, **kw)
-                routed.append(ids.cpu())
-                return ids, wts, aux
-
-            def keep_first(tokens, lengths, caches, *args, **kw):
-                """The first decode step's fed tokens and lengths, its
-                logits, each MoE layer's choice of experts in it, and the
-                first layer's K/V cache (this rank's) after it."""
-                if first:
-                    return decode(tokens, lengths, caches, *args, **kw)
-                blocks.route = recording_route
-                try:
-                    out = decode(tokens, lengths, caches, *args, **kw)
-                finally:
-                    blocks.route = route
-                k0, v0 = (t[0].to("cpu", copy=True) for t in caches["pos0"])
-                first.append({"tokens": tokens.to("cpu", copy=True),
-                              "lengths": lengths.to("cpu", copy=True),
-                              "logits": out[0].float().cpu(),
-                              "ids": torch.stack(routed), "k0": k0,
-                              "v0": v0})
-                return out
-
-            lm.decode = keep_first
-            reqs = make_requests(cfg, Request)
-            torch.cuda.synchronize()
+        with kernel_widths() as widths, (
+                first_decode_recorded(lm) if ps is None
+                else contextlib.nullcontext([])) as first:
             ops.reset_launch_counts()
             t0 = time.perf_counter()
             done = eng.run(reqs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = ops.launch_counts()
-            del lm.decode
-            want = expected_launches(cfg, eng, False)
-            if rt.decode_kv_shard(cfg) == "seq":
-                want["decode_attention"] = 0
-            if parallel.attn_seq_parallel:     # every prompt divides by 2
-                want["flash_attention"] = 0
-            check(counts == want, f"parallel ({run}) rank {rank}: launches "
-                  f"{counts} != expected {want}")
-            torch.save(first[0], Path(out_dir) / f"first_{run}_{rank}.pt")
-            res[run] = {"served": [(r.rid, np.asarray(r.out_tokens).tolist())
-                                   for r in done],
-                        "counts": counts, "prefills": eng.prefills,
-                        "steps": eng.steps, "wall_s": wall,
-                        "prefill_ms": [1e3 * x for x in pre_s],
-                        "decode_ms": [1e3 * x for x in step_s],
-                        "decode_kv_shard": rt.decode_kv_shard(cfg)}
-            del eng
-        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        res["collectives"] = _collectives_at_path_shapes(mesh, cfg)
-        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+        want = expected_launches(cfg, eng, ps is not None)
+        if rt.decode_kv_shard(cfg) == "seq":
+            want["decode_attention"] = 0
+        if parallel.attn_seq_parallel:     # every prompt divides by 2
+            want["flash_attention"] = 0
+        check(counts == want, f"parallel {arch} {mode}: launches {counts} "
+              f"!= expected {want}")
+        want_w = {"flash_attention": {tp.heads(cfg)},
+                  "decode_attention": {tp.heads(cfg)},
+                  "paged_decode_attention": {tp.heads(cfg)},
+                  "ssd_scan": {h1 - h0}, "moe_gmm": {n_exp}}
+        want_w = {k: v if want[k] else set() for k, v in want_w.items()}
+        check(widths == want_w, f"parallel {arch} {mode}: the kernels saw "
+              f"widths {widths}, not this rank's {want_w}")
+        if eng.pager is not None:
+            check(eng.pager.used_pages == 0, f"parallel {arch} paged: pages"
+                  " not freed")
+            eng.pager.check_conservation()
+        if first:
+            torch.save(first[0], first_path)
+        res[mode] = {"served": [(r.rid, np.asarray(r.out_tokens).tolist())
+                                for r in done],
+                     "counts": counts,
+                     "widths": {k: sorted(v) for k, v in widths.items()},
+                     "prefills": eng.prefills, "steps": eng.steps,
+                     "wall_s": wall, "prefill_ms": [1e3 * x for x in pre_s],
+                     "decode_ms": [1e3 * x for x in step_s]}
+        del eng
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def _parallel_rank(rank, world, port, out_dir, runs, cuts):
+    """One rank of the parallel phase: ``torch.multiprocessing.spawn``'s
+    target, in a process of its own on the card. Runs each of ``runs``
+    (``PARALLEL_RUNS``' entries) through ``_tp_run``, the fp32 ``cuts``
+    as this rank of the mesh, and the collectives and row-parallel
+    products at the path's shapes; writes what the parent checks to
+    ``out_dir``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.bridge import init_params
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import LM, Runtime
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(1, world, device="cuda")
+        out = Path(out_dir)
+        res = {"backend": dist.get_backend(), "device": str(mesh.device),
+               "coords": mesh.coords}
+        for name, arch, layers, over, modes in runs:
+            res[name] = _tp_run(mesh, arch, layers, over, modes,
+                                out / f"first_{name}_{rank}.pt")
+            free_device_memory()
+        for arch in cuts:
+            small = cut_config(arch)
+            lm = LM(small, init_params(
+                small, torch.Generator(device="cuda").manual_seed(2),
+                "cuda", mesh=mesh), device="cuda")
+            torch.save(cut_logits(lm, Runtime(mesh=mesh)),
+                       out / f"cut_{arch}_{rank}.pt")
+            del lm
+            free_device_memory()
+        names = {name for name, *_ in runs}
+        if "B" in names:
+            res["collectives"] = _collectives_at_path_shapes(
+                mesh, path_config("arctic-480b", 2, False))
+        if "T1" in names:
+            res["row_parallel"] = _row_parallel_at_path_shapes(
+                mesh, path_config("qwen3-14b", None, False))
+        (out / f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
 
 
+def _row_parallel_at_path_shapes(mesh, cfg):
+    """qwen3-14b's two row-parallel products at a decode step (8 rows),
+    bf16: ``wo`` (5120 -> 5120) and the MLP's ``w_out`` (17408 -> 5120),
+    each rank's partial summed over ``model`` against the whole product
+    (``parallel.check``). Every rank draws the same inputs. Returns the
+    max abs errors."""
+    from repro_torch.models.lm import Runtime
+    from repro_torch.parallel.check import row_parallel_against_whole
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    tp = Runtime(mesh=mesh).tensor(cfg)
+    errs = {}
+    for name, k in (("wo", cfg.q_dim), ("w_out", cfg.d_ff)):
+        x = rand((MAX_BATCH, k), torch.bfloat16, gen)
+        w = rand((k, cfg.d_model), torch.float32, gen).mul_(
+            k ** -0.5).to(torch.bfloat16)
+        got, want = row_parallel_against_whole(tp, x, w)
+        errs[name] = max_err(got, want, TOL["bfloat16"])
+    return errs
+
+
 def _collectives_at_path_shapes(mesh, cfg):
     """Run (B)'s two collectives at the path's shapes against the kernels
-    that (A) runs on the whole tensors, bf16 (``parallel.check``): the
-    sequence-sharded decode against the decode kernel at the first wave's
-    lengths (B 8, arctic's 56/8 heads x 128, a 1024-position cache, one
-    row empty and one full), and the ring against flash at the largest
+    that one rank runs on the whole tensors, bf16 (``parallel.check``):
+    the sequence-sharded decode against the decode kernel at the first
+    wave's lengths (B 8, arctic's 56/8 heads x 128, a 1024-position cache,
+    one row empty and one full), and the ring against flash at the largest
     prefill group (3 x 512). Every rank draws the same inputs. Returns the
     max abs errors."""
     from repro_torch.parallel.check import collectives_against_kernels
@@ -1025,37 +1245,129 @@ def _collectives_at_path_shapes(mesh, cfg):
             "ring": max_err(got["ring"], got["ring_want"], TOL["bfloat16"])}
 
 
+def caches_agree(got, want, keep, what):
+    """Layer 0's K or V of two runs on the (row, position) pairs ``keep``:
+    None when they are equal bit for bit, else (elements that differ,
+    elements compared, the largest difference). A difference must lie
+    within 1 bf16 ulp of the larger of the two values, or of the cache's
+    largest magnitude: a narrower product that cuBLAS sums in another
+    order rounds an element to its neighbour, and RoPE mixes two such
+    elements into one that may lie near zero. That layer's K/V come from
+    the tokens alone, so a wrong slice, offset or splice differs by the
+    values' own size."""
+    g, w = got[keep], want[keep]
+    if torch.equal(g, w):
+        return None
+    g, w = g.float(), w.float()
+    diff = (g - w).abs()
+    limit = 2.0 ** -7 * torch.maximum(torch.maximum(g.abs(), w.abs()),
+                                      w.abs().max())
+    bad = diff > limit
+    check(not bool(bad.any()), f"{what}: layer 0's cache differs beyond "
+          f"1 ulp at {int(bad.sum())} of {diff.numel()} values (largest "
+          f"{diff.max().item():.3e})")
+    return int((diff > 0).sum()), diff.numel(), diff.max().item()
+
+
+def _fed_rows(one, other, what):
+    """The rows whose fed token agrees between two first-decode records,
+    after checking their lengths agree."""
+    check(torch.equal(one["lengths"], other["lengths"]),
+          f"{what}: the first decode step's lengths differ")
+    B = one["tokens"].shape[0]
+    return (one["tokens"] == other["tokens"]).reshape(B, -1).all(-1)
+
+
+def _flipped(one, other):
+    """Rows where any MoE layer chose other experts (False without MoE)."""
+    B = one["tokens"].shape[0]
+    if one["ids"] is None:
+        return torch.zeros(B, dtype=torch.bool)
+    return (one["ids"].sort(dim=-1).values != other["ids"].sort(
+        dim=-1).values).reshape(one["ids"].shape[0], B, -1).any(-1).any(0)
+
+
+def check_tp_run(one, recs, tol, what, greedy=True):
+    """Hold a tensor-parallel run's first admit window and first decode
+    step against one rank's: ``one`` is phase 4's record
+    (``first_decode_recorded``), ``recs`` the run's, one a rank.
+
+    Exact: the embedding output on the rows whose fed token agrees, bit
+    for bit (the vocab-split lookup adds only zeros). Where the run
+    splits attention: layer 0's K/V, the ranks' slices joined by heads,
+    equal one rank's on every row at every position but the one this step
+    wrote, and there too where the fed token agrees, or lie within
+    ``caches_agree``'s rounding. Within ``tol``: the first window's
+    prefill logits, every row (the same prompts on both sides), and the
+    decode step's logits on the rows whose fed token, experts and, with
+    ``greedy``, greedy token agree, which must be at least half the rows
+    (with ``greedy``) or at least one. Returns (the prefill's max abs
+    error, the kept decode rows', every decode row's, the rows left out,
+    the logits' largest magnitude, layer 0's K/V difference or None)."""
+    from repro_torch.parallel.check import join_heads
+    fb = recs[0]
+    pre = (fb["prefill"] - one["prefill"]).abs().max().item()
+    check(pre <= tol, f"{what}: the first window's prefill logits {pre:.3e}"
+          f" from one rank's, over {tol}")
+    same_tok = _fed_rows(one, fb, what)
+    B = same_tok.shape[0]
+    check(torch.equal(fb["emb"][same_tok], one["emb"][same_tok]),
+          f"{what}: the first decode step's embedding differs from one "
+          "rank's")
+    kv = None
+    check(one["k0"] is None or fb["k0"].shape != one["k0"].shape,
+          f"{what}: attention is not split by heads")
+    if one["k0"] is not None:
+        S = one["k0"].shape[1]
+        keep = same_tok[:, None] | (torch.arange(S)[None, :]
+                                    != one["lengths"].long()[:, None])
+        got = [caches_agree(join_heads(r[n] for r in recs), one[n], keep,
+                            f"{what} {n}") for n in ("k0", "v0")]
+        kv = {n: x for n, x in zip("KV", got) if x is not None} or None
+    same_greedy = (one["logits"].argmax(-1) == fb["logits"].argmax(-1)
+                   ).reshape(B, -1).all(-1)
+    flipped = _flipped(one, fb)
+    kept = same_tok & ~flipped & (same_greedy if greedy else True)
+    row_err = (fb["logits"] - one["logits"]).abs().reshape(B, -1).amax(-1)
+    need = -(-B // 2) if greedy else 1
+    check(int(kept.sum()) >= need, f"{what}: only {int(kept.sum())} of {B}"
+          " rows kept their fed token, experts"
+          + (" and greedy token" if greedy else "")
+          + f" (fed token agrees {same_tok.tolist()}, greedy token "
+          f"{same_greedy.tolist()}, experts flipped {flipped.tolist()}; "
+          f"logits by row {[round(e, 4) for e in row_err.tolist()]})")
+    err = row_err[kept].max().item()
+    check(err <= tol, f"{what}: first decode step's logits {err:.3e} from "
+          f"one rank's on the rows that agree, over {tol}")
+    return (pre, err, row_err.tolist(), (~kept).nonzero().flatten().tolist(),
+            one["logits"].abs().max().item(), kv)
+
+
 def check_seq_run(fa, fbs):
     """Hold run (B)'s first decode step against run (A)'s: ``fa`` is
-    (A)'s record (every rank's is the same), ``fbs`` (B)'s, one a rank.
+    (A)'s record, its first-layer caches joined by heads; ``fbs`` (B)'s,
+    one a rank, each holding a slice of the positions.
 
     Exact: (B)'s first-layer caches, its ranks' slices laid end to end,
-    equal (A)'s bit for bit, on every row at every position but the one
-    this step wrote, and there too on the rows whose fed token agrees.
-    That layer's K/V come from the tokens alone, so a prefill splice
-    outside its rank's window or a decode write at a wrong offset differs
-    here, whatever rounding did. Within ``PARALLEL_LOGITS_TOL``: the
-    logits of the rows whose fed token and every MoE layer's experts
-    agree, at least half the rows. Returns (the kept rows' max abs error,
-    every row's, the rows left out, the logits' largest magnitude)."""
+    equal (A)'s on every row at every position but the one this step
+    wrote, and there too on the rows whose fed token agrees, or within
+    the rounding of (A)'s narrower K/V product (``caches_agree``). That layer's K/V come from the tokens alone, so a
+    prefill splice outside its rank's window or a decode write at a wrong
+    offset differs here, whatever rounding did. Within
+    ``PARALLEL_LOGITS_TOL``: the logits of the rows whose fed token and
+    every MoE layer's experts agree, at least half the rows. Returns (the
+    kept rows' max abs error, every row's, the rows left out, the logits'
+    largest magnitude, the caches' difference or None)."""
     fb = fbs[0]
-    check(torch.equal(fa["lengths"], fb["lengths"]),
-          "parallel (B): the first decode step's lengths differ from (A)'s")
+    same_tok = _fed_rows(fa, fb, "parallel (B)")
     B, S = fa["k0"].shape[:2]
-    same_tok = (fa["tokens"] == fb["tokens"]).reshape(B, -1).all(-1)
-    written = (torch.arange(S)[None, :]
-               == fa["lengths"].long()[:, None])          # (B, S)
-    keep = same_tok[:, None] | ~written
-    for name in ("k0", "v0"):
-        whole = torch.cat([x[name] for x in fbs], dim=1)
-        check(torch.equal(whole[keep], fa[name][keep]),
-              f"parallel (B): the first layer's {name[0].upper()} cache, "
-              f"the ranks' slices end to end, differs from (A)'s")
+    keep = same_tok[:, None] | (torch.arange(S)[None, :]
+                                != fa["lengths"].long()[:, None])
+    got = [caches_agree(torch.cat([x[name] for x in fbs], dim=1), fa[name],
+                        keep, f"parallel (B) {name}") for name in ("k0", "v0")]
+    kv = {n: x for n, x in zip("KV", got) if x is not None} or None
     row_err = (fb["logits"] - fa["logits"]).abs().reshape(B, -1).amax(-1)
-    flipped = (fa["ids"].sort(dim=-1).values
-               != fb["ids"].sort(dim=-1).values).reshape(
-                   fa["ids"].shape[0], B, -1).any(-1).any(0)
-    kept = same_tok & ~flipped
+    kept = same_tok & ~_flipped(fa, fb)
     check(2 * int(kept.sum()) >= B, f"parallel (B): only {int(kept.sum())}"
           f" of {B} rows kept their token and experts at the first decode "
           "step")
@@ -1064,114 +1376,196 @@ def check_seq_run(fa, fbs):
           f"logits {err:.3e} from (A)'s on the rows whose token and experts "
           f"agree, over {PARALLEL_LOGITS_TOL}")
     return (err, row_err.tolist(), (~kept).nonzero().flatten().tolist(),
-            fa["logits"].abs().max().item())
+            fa["logits"].abs().max().item(), kv)
 
 
-def phase_parallel(single_served, smi):
+def describe_kv(kv, one):
+    """The K/V comparison's outcome in words: ``caches_agree``'s results
+    (None: equal), or not compared."""
+    if one["k0"] is None:
+        return "not compared (no attention at layer 0)"
+    if kv is None:
+        return "equal bit for bit"
+    return ("within 1 bf16 ulp (cuBLAS sums the narrower product in "
+            "another order): " + "; ".join(
+                f"{name}: {n} of {t} values differ, by {m:.3e} at most"
+                for name, (n, t, m) in kv.items()))
+
+
+def _median(xs):
+    return statistics.median(xs) if xs else float("nan")
+
+
+def phase_parallel(single, smi, runs=PARALLEL_RUNS, cuts=TP_CUTS):
     """Serving across ranks (``repro_torch.parallel``): a world of 2 ranks
-    on the card over gloo, arctic-480b at published widths cut to 2 of 35
-    layers as in phase 4, each rank drawing phase 4's weights and keeping
-    64 of the 128 experts of each layer. (A): experts parallel, attention
-    replicated (every head on every rank, contiguous KV); every request's
-    tokens and the finish order must equal phase 4's single-rank
-    contiguous run's bit for bit. (B): (A) plus the sequence-sharded
-    decode cache and ring prefill; every request must be served in full,
-    its first decode step must pass ``check_seq_run`` against (A)'s, and
-    each rank holds the two collectives at the path's shapes against the
-    kernels (A) runs, within the bf16 tolerance. The share of (B)'s
-    tokens equal to (A)'s is printed, not gated: bf16 rounding that
-    differs in attention flips near-tied top-2 choices and greedy
-    argmaxes, and the runs part from there. Each rank sets its launch
-    counters to 0 just before each run and reads them just after.
-    Returns the runs' summed launch counts."""
+    on the card over gloo, each drawing phase 4's weights and keeping its
+    slices. ``single``: {arch: phase 4's ``phase_serve`` result} for the
+    archs of ``runs``. Every run serves phase 4's 16 requests, the same
+    tokens and finish order on both ranks, through the kernels at the
+    rank's widths. (T1) qwen3-14b and (T3) mamba2-1.3b tensor-parallel,
+    and (A) arctic's cut tensor- and expert-parallel, pass
+    ``check_tp_run`` against phase 4's first decode step; T1 serves
+    contiguous and paged with equal tokens, every page freed, and holds
+    ``T1_GIB`` a rank. (B), (A) with the sequence-sharded decode cache and
+    ring prefill (attention whole), passes ``check_seq_run`` against (A),
+    and each rank holds those collectives at the path's shapes against the
+    kernels one rank runs. The fp32 ``cuts`` (T2, and T3's) match one
+    rank on the card within ``REF_TOL``. The share of (B)'s tokens equal
+    to (A)'s is printed, not gated: bf16 rounding that differs flips
+    near-tied top-2 choices and greedy argmaxes, and the runs part from
+    there. Each rank sets its launch counters to 0 just before each
+    engine run and reads them just after. Returns (the runs' summed
+    launch counts, each run's)."""
     import shutil
     import socket
+
     import torch.multiprocessing as mp
+    from repro_torch.bridge import init_params
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel.check import join_heads
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     out = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
     t0 = time.perf_counter()
+    W = PARALLEL_WORLD
     try:
-        mp.spawn(_parallel_rank, args=(PARALLEL_WORLD, port, str(out)),
-                 nprocs=PARALLEL_WORLD, join=True)
+        mp.spawn(_parallel_rank, args=(W, port, str(out), runs, cuts),
+                 nprocs=W, join=True)
         wall = time.perf_counter() - t0
         ranks = [json.loads((out / f"rank{r}.json").read_text())
-                 for r in range(PARALLEL_WORLD)]
-        first = {run: [torch.load(out / f"first_{run}_{r}.pt")
-                       for r in range(PARALLEL_WORLD)]
-                 for run, _ in PARALLEL_RUNS}
+                 for r in range(W)]
+        first = {name: [torch.load(out / f"first_{name}_{r}.pt")
+                        for r in range(W)] for name, *_ in runs}
+        cut = {arch: [torch.load(out / f"cut_{arch}_{r}.pt")
+                      for r in range(W)] for arch in cuts}
     finally:
         shutil.rmtree(out, ignore_errors=True)
-    cfg = path_config(*PARALLEL_PATH)
-    want = [[rid, toks] for rid, toks in single_served]
-    total = {}
-    for r, res in enumerate(ranks):
-        check(res["local_experts"] == [cfg.n_experts // PARALLEL_WORLD]
-              * len(res["local_experts"]),
-              f"parallel rank {r}: local experts {res['local_experts']}")
-        phase("parallel", "rank", f"rank {r} of {PARALLEL_WORLD} on "
-              f"{res['device']} over {res['backend']} (coords "
-              f"{res['coords']}): {res['local_experts']} local experts a MoE "
-              f"layer, {res['weights_gib']:.2f} GiB of weights drawn in "
-              f"{res['draw_s']:.2f} s; peak device memory "
-              f"{res['peak_gib']:.2f} GiB (max_memory_allocated); at the "
-              f"path's shapes, bf16: sequence-sharded decode max abs err "
-              f"{res['collectives']['decode']:.3e} against the decode kernel,"
-              f" ring {res['collectives']['ring']:.3e} against flash (tol "
-              f"{TOL['bfloat16']})")
-        for run, _ in PARALLEL_RUNS:
-            x = res[run]
-            check(x["counts"]["moe_gmm"] > 0, f"parallel ({run}) rank {r}: "
-                  "moe_gmm never launched")
-            check(x["served"] == ranks[0][run]["served"],
-                  f"parallel ({run}): rank {r} served other tokens or another"
-                  " finish order than rank 0")
-            pre, dec = x["prefill_ms"], x["decode_ms"]
-            phase("parallel", run, f"rank {r}: decode_kv_shard "
-                  f"{x['decode_kv_shard']}; {len(x['served'])} requests, "
-                  f"{x['prefills']} prefills at {statistics.median(pre):.3f} "
-                  f"ms a group (median; mean {statistics.mean(pre):.3f}, "
-                  f"first {pre[0]:.3f}), {x['steps']} decode steps at "
-                  f"{statistics.median(dec):.3f} ms a step (median; mean "
-                  f"{statistics.mean(dec):.3f}), wall {x['wall_s']:.3f} s; "
-                  f"launches "
-                  f"{x['counts']} (moe_gmm on {res['local_experts'][0]} "
-                  f"experts a call); backend {res['backend']}; {smi}")
-            for k, v in x["counts"].items():
-                total[k] = total.get(k, 0) + v
-    a, b = ranks[0]["A"]["served"], ranks[0]["B"]["served"]
-    check(a == want, "parallel (A): tokens or finish order differ from "
-          "phase 4's single-rank contiguous arctic run")
-    for run in first:
-        check(all(torch.equal(x[w], first[run][0][w]) for x in first[run]
-                  for w in ("tokens", "lengths", "logits", "ids")),
-              f"parallel ({run}): the ranks' first decode steps differ")
-        check(torch.equal(first[run][0]["lengths"],
-                          first["A"][0]["lengths"]),
-              f"parallel ({run}): the first decode step's lengths differ")
-    check(all(torch.equal(x[w], first["A"][0][w]) for x in first["A"]
-              for w in ("k0", "v0")),
-          "parallel (A): the ranks' replicated caches differ")
-    err, row_err, left_out, scale = check_seq_run(first["A"][0], first["B"])
-    same = sum(x == y for (_, ta), (_, tb) in zip(sorted(a), sorted(b))
-               for x, y in zip(ta, tb))
-    n_tok = sum(len(t) for _, t in a)
-    check(all(len(t) == NEW_TOKENS and min(t) >= 0
-              and max(t) < cfg.vocab_padded for _, t in b)
-          and sorted(r for r, _ in b) == list(range(N_REQ)),
-          "parallel (B): a request unserved, short or out of range")
-    phase("parallel", "done", f"(A) {len(a)} requests' tokens and finish "
-          f"order equal phase 4's single-rank contiguous run's bit for bit; "
-          f"(B) served all {len(b)}; at its first decode step the first "
-          f"layer's K/V caches, the ranks' slices end to end, equal (A)'s bit"
-          f" for bit, and its logits are {err:.3e} from (A)'s at most on the"
-          f" rows whose token and experts agree (limit "
-          f"{PARALLEL_LOGITS_TOL}; |logit| up to {scale:.3f}), by row "
-          f"{[round(e, 4) for e in row_err]} (left out, their token or "
-          f"experts differ: {left_out}); {same} of {n_tok} tokens "
-          f"({same / n_tok:.1%}) equal to (A)'s; phase {wall:.1f} s; {smi}")
-    return total
+    total, by_run = {}, {}
+    for name, arch, layers, over, modes in runs:
+        cfg = path_config(arch, layers, False)
+        one = single[arch]
+        by_run[name] = {}
+        for r, res in enumerate(ranks):
+            x = res[name]
+            for mode in modes:
+                y = x[mode]
+                check(y["served"] == ranks[0][name][mode]["served"],
+                      f"parallel ({name}) {mode}: rank {r} served other "
+                      "tokens or another finish order than rank 0")
+                check(len(y["served"]) == N_REQ and all(
+                    len(t) == NEW_TOKENS and 0 <= min(map(min, [
+                        t if isinstance(t[0], int) else sum(t, [])]))
+                    and max(map(max, [t if isinstance(t[0], int)
+                                      else sum(t, [])])) < cfg.vocab_padded
+                    for _, t in y["served"]),
+                    f"parallel ({name}) {mode}: a request unserved, short "
+                    "or out of range")
+                for k, v in y["counts"].items():
+                    total[k] = total.get(k, 0) + v
+                    by_run[name][k] = by_run[name].get(k, 0) + v
+                pre, dec = y["prefill_ms"], y["decode_ms"]
+                phase("parallel", name, f"{cfg.name} rank {r} of {W} on "
+                      f"{res['device']} over {res['backend']} {mode}: "
+                      f"decode_kv_shard {x['decode_kv_shard']}, split "
+                      f"{x['split']}; {len(y['served'])} requests, "
+                      f"{y['prefills']} prefills at {_median(pre):.3f} ms a"
+                      f" group (median; mean {statistics.mean(pre):.3f}, "
+                      f"first {pre[0]:.3f}; one rank "
+                      f"{one.times['prefill_ms']:.3f}), {y['steps']} decode"
+                      f" steps at {_median(dec):.3f} ms a step (median; "
+                      f"mean {statistics.mean(dec):.3f}; one rank "
+                      f"{one.times['decode_ms']:.3f}), wall "
+                      f"{y['wall_s']:.3f} s; launches {y['counts']}, "
+                      f"widths {y['widths']}; {smi}")
+            phase("parallel", name, f"{cfg.name} rank {r}: holds "
+                  f"{x['held_gib']:.2f} GiB of the whole model's "
+                  f"{x['whole_gib']:.2f} ({x['held_gib'] / x['whole_gib']:.1%}"
+                  f"), drawn in {x['draw_s']:.2f} s; peak device memory "
+                  f"{x['peak_gib']:.2f} GiB (one rank: "
+                  f"{one.times['peak_gib']:.2f}); {smi}")
+        if name == "T1":
+            held = ranks[0][name]["held_gib"]
+            check(abs(held - T1_GIB) <= 0.02 * T1_GIB,
+                  f"parallel (T1): a rank holds {held:.2f} GiB, not "
+                  f"{T1_GIB} +- 2 %")
+        if len(modes) > 1:
+            a, b = (ranks[0][name][m]["served"] for m in modes[:2])
+            check(a == b, f"parallel ({name}): tokens or finish order "
+                  f"differ between {modes[0]} and {modes[1]}")
+        for key in ("tokens", "lengths", "logits", "emb"):
+            check(all(torch.equal(x[key], first[name][0][key])
+                      for x in first[name]),
+                  f"parallel ({name}): the ranks' first decode steps differ "
+                  f"({key})")
+        if name == "B":
+            continue
+        pre, err, row_err, left, scale, kv = check_tp_run(
+            one.first, first[name], TP_LOGITS_TOL[arch], f"parallel ({name})",
+            greedy=arch in TP_GREEDY)
+        same = sum(t == u for (_, ta), (_, tb) in zip(
+            sorted(one.served), sorted(ranks[0][name]["contiguous"]["served"]))
+            for t, u in zip(ta, tb))
+        n_tok = sum(len(t) for _, t in one.served)
+        phase("parallel", name, f"{cfg.name} against phase 4's one rank: the "
+              f"first window's prefill logits {pre:.3e} at most (every row); "
+              f"at the first decode step, embedding equal bit for bit; layer "
+              f"0's K/V joined by heads {describe_kv(kv, one.first)}; logits "
+              f"{err:.3e} at most on the rows that keep their fed token, "
+              f"experts" + (" and greedy token" if arch in TP_GREEDY else "")
+              + f" (limit {TP_LOGITS_TOL[arch]}; |logit| up to {scale:.3f}), "
+              f"by row {[round(e, 4) for e in row_err]} (left out: {left}); "
+              f"{same} of {n_tok} tokens ({same / n_tok:.1%}) equal to one "
+              f"rank's; {smi}")
+    names = {name for name, *_ in runs}
+    if {"A", "B"} <= names:
+        fa = dict(first["A"][0], **{k: join_heads(x[k] for x in first["A"])
+                                    for k in ("k0", "v0")})
+        err, row_err, left, scale, kv = check_seq_run(fa, first["B"])
+        a = ranks[0]["A"]["contiguous"]["served"]
+        b = ranks[0]["B"]["contiguous"]["served"]
+        same = sum(t == u for (_, ta), (_, tb) in zip(sorted(a), sorted(b))
+                   for t, u in zip(ta, tb))
+        n_tok = sum(len(t) for _, t in a)
+        coll = [res["collectives"] for res in ranks]
+        phase("parallel", "B", f"against (A) at the first decode step: the "
+              f"first layer's K/V caches, the ranks' slices end to end, "
+              + f"against (A)'s joined by heads: {describe_kv(kv, fa)}"
+              + f"; logits {err:.3e} from (A)'s at most on the rows whose "
+              f"token and experts agree (limit {PARALLEL_LOGITS_TOL}; "
+              f"|logit| up to {scale:.3f}), by row "
+              f"{[round(e, 4) for e in row_err]} (left out: {left}); "
+              f"{same} of {n_tok} tokens ({same / n_tok:.1%}) equal to (A)'s;"
+              f" at the path's shapes, bf16, by rank: sequence-sharded decode"
+              f" max abs err {[round(c['decode'], 6) for c in coll]} against"
+              f" the decode kernel, ring {[round(c['ring'], 6) for c in coll]}"
+              f" against flash (tol {TOL['bfloat16']}); {smi}")
+    if "T1" in names:
+        errs = {k: [round(r["row_parallel"][k], 6) for r in ranks]
+                for k in ("wo", "w_out")}
+        phase("parallel", "T1", "row-parallel products at a decode step, "
+              "bf16, summed over 2 ranks against the whole product, by "
+              "rank: " + "; ".join(f"{k} max abs err {v}"
+                                   for k, v in errs.items())
+              + f" (tol {TOL['bfloat16']})")
+    for arch in cuts:
+        small = cut_config(arch)
+        want = cut_logits(LM(small, init_params(
+            small, torch.Generator(device="cuda").manual_seed(2), "cuda"),
+            device="cuda"))
+        errs = [[max_err(c[k], want[k], REF_TOL) for k in ("prefill",
+                                                             "decode")]
+                for c in cut[arch]]
+        free_device_memory()
+        phase("parallel", "T2" if arch == "qwen3-14b" else "T3",
+              f"{small.name} 2-layer fp32 cut at published widths, TF32 off,"
+              f" tensor-parallel over {W} ranks against one rank on the "
+              f"card: (prefill, decode) logits max abs err by rank "
+              f"{[[float(f'{e:.3e}') for e in x] for x in errs]} (tol "
+              f"{REF_TOL})")
+    phase("parallel", "done", f"{len(runs)} runs and {len(cuts)} fp32 cuts "
+          f"over {W} ranks; phase {wall:.1f} s of spawn and runs; {smi}")
+    return total, by_run
 
 
 def phase_dsp(smi):
@@ -1263,52 +1657,126 @@ def phase_dsp(smi):
     return total
 
 
+def flash_shape(label, heads, hdim, first, flush, gen, plain=True):
+    """Flash at the largest prefill group of phase 4's first admit window
+    (``first``'s prompts of the longest length) at ``heads`` x ``hdim``,
+    bf16, causal: kernel, plain (where ``plain``) and SDPA-flash times,
+    bound and error."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    S, elt = max(first), 2
+    BH = first.count(S) * heads
+    q, k, v = (rand((BH, S, hdim), torch.bfloat16, gen) for _ in range(3))
+    pairs = sum(min(i + 1, S) for i in range(S))
+    b_ms, b_by = bound(4 * BH * S * hdim * elt,
+                       (4 * hdim * pairs * BH, PEAK_BF16_FLOPS))
+    err = max_err(flash_attention(q, k, v, causal=True),
+                  flash_attention_ref(q, k, v), TOL["bfloat16"])
+    ms = time_ms(lambda: flash_attention(q, k, v), flush)
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True), flush)
+    return dict(
+        label=f"{label} BH={BH} S={S} hd={hdim} bf16 causal", err=err,
+        ms=ms, lib=lib, b_ms=b_ms, b_by=b_by,
+        plain=(time_ms(lambda: flash_attention_ref(q, k, v), flush)
+               if plain else None))
+
+
+def tp_rows(by_run, flush, gen):
+    """Rows at the tensor-parallel runs' shapes, launches from those runs
+    (both ranks): flash, decode and paged decode at qwen3-14b's 20/4 heads
+    a rank (T1; G 5), ssd_scan at mamba2's 32 SSM heads a rank (T3, its
+    largest prefill group, 3 x 512)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.blocks import DECODE_BLOCK_S
+    qwen3 = get_config("qwen3-14b")
+    H, KVH, hd = qwen3.n_heads // 2, qwen3.n_kv_heads // 2, qwen3.head_dim
+    first = [PLENS[i % len(PLENS)] for i in range(MAX_BATCH)]
+    t1 = by_run["T1"]
+    fl = flash_shape("qwen3 TP2", H, hd, first, flush, gen)
+    rows = [dict(
+        name="flash_attention qwen3-tp2", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:98",
+        launches=t1["flash_attention"], max_abs_err=fl["err"], ms=fl["ms"],
+        plain_ms=fl["plain"], bound_ms=fl["b_ms"], bound_by=fl["b_by"],
+        library_ms=fl["lib"],
+        shape=f"{fl['label']} (qwen3-14b's heads a rank over 2; launches: "
+              "T1's, both ranks); library: scaled_dot_product_attention "
+              "under sdpa_kernel(SDPBackend.FLASH_ATTENTION)")]
+    dc = decode_shape("qwen3 TP2", H, KVH, hd, first, flush, gen)
+    for name, replaces, pre in (
+            ("decode_attention", "decode_attention.py:83", ""),
+            ("paged_decode_attention", "paged_decode_attention.py:90",
+             "paged_")):
+        rows.append(dict(
+            name=f"{name} qwen3-tp2", route="cuda",
+            source="src/repro_torch/kernels/csrc/decode_attention.cu",
+            replaces=f"src/repro/kernels/{replaces}",
+            launches=t1[name], max_abs_err=dc[pre + "err"],
+            ms=dc[pre + "ms"], plain_ms=dc[pre + "plain"],
+            bound_ms=dc[pre + "b_ms"], bound_by=dc[pre + "b_by"],
+            library_ms=None if pre else dc["lib"],
+            shape=f"{dc['label']} (G 5, qwen3-14b's heads a rank over 2; "
+                  "launches: T1's, both ranks); "
+                  + (f"page_size={DECODE_BLOCK_S}, shuffled pages; library "
+                     "n/a: no single PyTorch call attends through a page "
+                     "table" if pre else "library: scaled_dot_product_"
+                     "attention with a length mask and enable_gqa")))
+    mamba2 = get_config("mamba2-1.3b")
+    B, S = 3, max(PLENS)
+    nh, hp, ng, ds = (mamba2.n_ssm_heads // 2, mamba2.ssm_head_dim,
+                      mamba2.ssm_groups, mamba2.d_state)
+    chunk = min(mamba2.ssm_chunk, S)
+    args = ssd_inputs(B, S, nh, hp, ng, ds, torch.bfloat16, gen)
+    b_ms, b_by = ssd_bound(B, S, nh, hp, ng, ds, chunk, 2)
+    y, st = ssd_scan(*args, chunk=chunk)
+    y_ref, st_ref = ssd_scan_ref(*args, chunk=chunk)
+    err = max(max_err(y, y_ref, *SSD_TOL["bfloat16"]),
+              max_err(st, st_ref, *SSD_TOL["bfloat16"]))
+    rows.append(dict(
+        name="ssd_scan mamba2-tp2", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:85",
+        launches=by_run["T3"]["ssd_scan"], max_abs_err=err,
+        ms=time_ms(lambda: ssd_scan(*args, chunk=chunk), flush),
+        plain_ms=time_ms(lambda: ssd_scan_ref(*args, chunk=chunk), flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"mamba2 B={B} S={S} nh={nh} hp={hp} ng={ng} ds={ds} "
+              f"chunk={chunk} bf16 in, fp32 out (32 of its 64 SSM heads a "
+              "rank over 2; launches: T3's, both ranks); library n/a: no "
+              "single PyTorch call computes a chunked SSD scan"))
+    return rows
+
+
 def attention_rows(launches, kimi_launches, flush, gen):
     """Rows of flash, decode and paged decode at musicgen's heads (arctic's
     beside them in the shape text), and of the same three at kimi-k2's
     hd-112 heads (H 64, KVH 8), whose launches are the kimi path's."""
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.models.blocks import DECODE_BLOCK_S
 
     cfg = get_config(ARCH)
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    dtype = torch.bfloat16
-    elt = 2
     rows = []
 
     # flash at the largest prefill group of phase 4's first admit window,
     # musicgen's (the row), arctic's hd-128 and kimi-k2's hd-112 heads (a
     # row of its own); the library is SDPA pinned to its flash backend
     first = [PLENS[i % len(PLENS)] for i in range(MAX_BATCH)]
-    S = max(first)
     arctic = get_config("arctic-480b")
     kimi = get_config("kimi-k2-1t-a32b")
-    shapes = []
-    for label, heads, hdim in (("musicgen", H, hd),
-                               ("arctic", arctic.n_heads, arctic.head_dim),
-                               ("kimi-k2", kimi.n_heads, kimi.head_dim)):
-        BH = first.count(S) * heads
-        q, k, v = (rand((BH, S, hdim), dtype, gen) for _ in range(3))
-        pairs = sum(min(i + 1, S) for i in range(S))
-        b_ms, b_by = bound(4 * BH * S * hdim * elt,
-                           (4 * hdim * pairs * BH, PEAK_BF16_FLOPS))
-        err = max_err(flash_attention(q, k, v, causal=True),
-                      flash_attention_ref(q, k, v), TOL["bfloat16"])
-        ms = time_ms(lambda: flash_attention(q, k, v), flush)
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                q[None], k[None], v[None], is_causal=True), flush)
-        shapes.append(dict(
-            label=f"{label} BH={BH} S={S} hd={hdim} bf16 causal", err=err,
-            ms=ms, lib=lib, b_ms=b_ms, b_by=b_by,
-            plain=(time_ms(lambda: flash_attention_ref(q, k, v), flush)
-                   if label != "arctic" else None)))
-        del q, k, v
-    mg, ar, km = shapes
+    mg, ar, km = (flash_shape(label, heads, hdim, first, flush, gen,
+                              plain=label != "arctic")
+                  for label, heads, hdim in (
+                      ("musicgen", H, hd),
+                      ("arctic", arctic.n_heads, arctic.head_dim),
+                      ("kimi-k2", kimi.n_heads, kimi.head_dim)))
     rows.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1696,7 +2164,8 @@ def ssd_row(launches, flush, gen, name):
     return row
 
 
-def phase_times(launches, kimi_launches, arctic_counts, name, per_call):
+def phase_times(launches, kimi_launches, by_run, arctic_counts, name,
+                per_call):
     gen = torch.Generator(device="cuda").manual_seed(4)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     rows = attention_rows(launches, kimi_launches, flush, gen)
@@ -1704,6 +2173,7 @@ def phase_times(launches, kimi_launches, arctic_counts, name, per_call):
     free_device_memory()
     gmm_split_sweep(arctic_counts, flush, gen, name)
     rows.append(ssd_row(launches, flush, gen, name))
+    rows += tp_rows(by_run, flush, gen)
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         n = per_call[r["name"].split()[0]]
@@ -2095,30 +2565,30 @@ def main():
     free_device_memory()
     per_call = phase_launches_per_call()
     free_device_memory()
-    launches, by_path, moe_counts_by_arch, served = {}, {}, {}, {}
+    launches, by_path, served = {}, {}, {}
     for arch, layers, smoke, why in PATHS:
-        counts, moe_counts_by_t, served[arch] = phase_serve(
-            arch, layers, smoke, why, smi)
-        by_path[arch] = counts
-        for k, v in counts.items():
+        served[arch] = phase_serve(arch, layers, smoke, why, smi)
+        by_path[arch] = served[arch].counts
+        for k, v in served[arch].counts.items():
             launches[k] = launches.get(k, 0) + v
         free_device_memory()
-        if moe_counts_by_t is not None:
-            moe_counts_by_arch[arch] = moe_counts_by_t
-            check_gmm_counts(path_config(arch, layers, smoke), moe_counts_by_t,
+        if served[arch].moe_counts is not None:
+            check_gmm_counts(path_config(arch, layers, smoke),
+                             served[arch].moe_counts,
                              torch.Generator(device="cuda").manual_seed(6))
             free_device_memory()
         if arch in ("musicgen-large", "mamba2-1.3b"):
             reference_check(arch)
             free_device_memory()
-    for k, v in phase_parallel(served["arctic-480b"], smi).items():
+    total, by_run = phase_parallel(served, smi)
+    for k, v in total.items():
         launches[k] += v
     free_device_memory()
     for k, v in phase_dsp(smi).items():
         launches[k] += v
     free_device_memory()
-    rows = phase_times(launches, by_path["kimi-k2-1t-a32b"],
-                       moe_counts_by_arch["arctic-480b"], smi, per_call)
+    rows = phase_times(launches, by_path["kimi-k2-1t-a32b"], by_run,
+                       served["arctic-480b"].moe_counts, smi, per_call)
     free_device_memory()
     phase_train(smi)
     free_device_memory()

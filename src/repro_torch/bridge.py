@@ -10,11 +10,13 @@ cannot reproduce ``jax.random``'s draws, so parity runs use
 ``params_from_jax``.
 
 ``param_axes`` is the port's copy of the logical axes that ``Scope.param``
-records for every leaf (``parallel.sharding`` places them). Given a mesh,
-both ``params_from_jax`` and ``init_params`` keep only this rank's shard
-of each leaf that serving shards, the MoE expert weights over the
-``model`` axis (``shard_leaf``); ``init_params`` still draws the whole
-stream, so a sharded model's weights are exactly the slices of the
+records for every leaf (``parallel.sharding`` places them). Given a mesh
+(and the ``ParallelConfig`` the model will serve under), both
+``params_from_jax`` and ``init_params`` keep only this rank's slice of
+each leaf that serving splits over the ``model`` axis (``shard_leaf``):
+the MoE experts, and the heads, MLP, vocab and Mamba2 leaves that
+``parallel.tensor.tensor_plan`` splits. ``init_params`` still draws the
+whole stream, so a sharded model's weights are exactly the slices of the
 single-rank model's.
 """
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.models.lm import DTYPES, resolve_device
 from repro_torch.parallel.sharding import AXIS_MODEL, resolve_spec
+from repro_torch.parallel.tensor import TensorParallel, tensor_plan
 from repro_torch.train.optimizer import TrainState
 
 # A leaf whose fp32 draw would exceed this is drawn in slices along its
@@ -54,17 +57,24 @@ def _map_with_path(fn, tree, path=""):
     return fn(path, tree)
 
 
-def params_from_jax(tree, device=None, *, mesh=None):
+def params_from_jax(tree, device=None, *, mesh=None, cfg=None,
+                    parallel=None):
     """A nested dict (or tuple) of arrays (JAX leaves through
     ``np.asarray``) -> the same tree of tensors on ``device``. bf16 leaves
     cross as an int16 view of their bits, so they arrive bit for bit. With
-    ``mesh`` (``launch.mesh.Mesh``), a leaf that serving shards keeps this
-    rank's slice (``shard_leaf``)."""
+    ``mesh`` (``launch.mesh.Mesh``), the model's ``cfg`` and the
+    ``ParallelConfig`` it will serve under (the default if None), a leaf
+    that serving splits keeps this rank's slice (``shard_leaf``)."""
     device = resolve_device(device)
+    if mesh is not None and cfg is None:
+        raise ValueError("params_from_jax(mesh=...) needs the model's cfg: "
+                         "which leaves split depends on its head counts")
+    tp = tensor_plan(cfg, mesh, parallel) if mesh is not None else None
 
     def convert(path, a):
         a = np.asarray(a)
-        cut = shard_leaf(path, a.shape, mesh) if mesh is not None else None
+        cut = shard_leaf(path, a.shape, mesh, tp) if mesh is not None \
+            else None
         if cut is not None:
             dim, lo, hi = cut
             a = a[(slice(None),) * dim + (slice(lo, hi),)]
@@ -119,25 +129,35 @@ def param_axes(cfg):
     return _build(cfg, lambda full, spec, path: leaf_axes(path))
 
 
-def shard_leaf(path: str, shape, mesh):
+def shard_leaf(path: str, shape, mesh, tp: TensorParallel):
     """(dim, start, stop) of the slice of leaf ``path`` (of ``shape``)
     that this rank of ``mesh`` holds, or None when it holds it whole.
 
-    Serving shards the expert weights alone: the leaves whose logical
-    axes, after ``layers``, begin with ``experts``, along that dim where
-    ``resolve_spec`` places it on the ``model`` axis. The router's
-    ``experts`` dim stays whole: every rank routes every token."""
+    A leaf is cut along the dim where ``resolve_spec`` places the
+    ``model`` axis, into equal parts, when ``tp`` (``parallel.tensor.
+    tensor_plan``) splits its family: the experts (the leaves whose axes,
+    after ``layers``, begin with ``experts``; the router's ``experts`` dim
+    stays whole, since every rank routes every token), attention's heads
+    and KV heads, an MLP's hidden units, the vocab, and Mamba2's inner
+    channels and heads."""
+    if mesh.shape.get(AXIS_MODEL, 1) == 1:
+        return None
     axes = leaf_axes(path)
-    dim = 1 if axes[0] == "layers" else 0
-    if len(axes) <= dim or axes[dim] != "experts":
-        return None
+    lead = 1 if axes[0] == "layers" else 0
     spec = resolve_spec(axes, tuple(shape), mesh)
-    at = spec[dim] if dim < len(spec) else None
-    if AXIS_MODEL not in ((at,) if isinstance(at, str) else (at or ())):
+    on_model = [d for d, at in enumerate(spec)
+                if AXIS_MODEL in ((at,) if isinstance(at, str) else
+                                  (at or ()))]
+    if not on_model:
         return None
-    size = shape[dim] // mesh.shape[AXIS_MODEL]
-    i = mesh.coords[AXIS_MODEL]
-    return dim, i * size, (i + 1) * size
+    dim = on_model[0]
+    name = axes[dim]
+    split = {"experts": dim == lead, "heads": tp.attn,
+             "kv_heads": tp.attn, "mlp": tp.mlp(shape[dim]),
+             "vocab": tp.vocab, "ssm_inner": tp.ssm}.get(name, False)
+    if not split:
+        return None
+    return (dim,) + tp.part(shape[dim])
 
 
 def _spec(shape, law="fan_in", scale=1.0, dtype=None):
@@ -281,28 +301,41 @@ def _build(cfg, make):
     return params
 
 
-def meta_params(cfg):
-    """The param tree of ``cfg`` as meta tensors: shapes and dtypes only."""
+def _local(full, cut):
+    """The shape of a rank's slice ``cut`` (or None: whole) of ``full``."""
+    local = list(full)
+    if cut is not None:
+        local[cut[0]] = cut[2] - cut[1]
+    return local
+
+
+def meta_params(cfg, *, mesh=None, parallel=None):
+    """The param tree of ``cfg`` as meta tensors: shapes and dtypes only;
+    with ``mesh`` (and ``parallel``), the shapes this rank holds."""
+    tp = tensor_plan(cfg, mesh, parallel) if mesh is not None else None
     return _build(cfg, lambda full, spec, path: torch.empty(
-        full, dtype=spec[3] or DTYPES[cfg.dtype], device="meta"))
+        _local(full, None if tp is None
+               else shard_leaf(path, full, mesh, tp)),
+        dtype=spec[3] or DTYPES[cfg.dtype], device="meta"))
 
 
-def init_params(cfg, generator: torch.Generator, device=None, *, mesh=None):
+def init_params(cfg, generator: torch.Generator, device=None, *, mesh=None,
+                parallel=None):
     """Fresh weights on ``device`` (the card by default) from ``generator``,
     which must live on the same device. Block leaves carry the stacked
     leading ``R`` axis; the fan of a stacked weight is its per-layer
     ``shape[-2]``. Draws are fp32, then cast to the leaf's dtype. With
-    ``mesh``, a leaf that serving shards keeps this rank's slice of the
-    same draws (``shard_leaf``)."""
+    ``mesh`` and the ``ParallelConfig`` the model will serve under (the
+    default if None), a leaf that serving splits keeps this rank's slice
+    of the same draws (``shard_leaf``)."""
     device = resolve_device(device)
+    tp = tensor_plan(cfg, mesh, parallel) if mesh is not None else None
 
     def make(full, spec, path):
         shape, law, scale, dtype = spec
         dtype = dtype or DTYPES[cfg.dtype]
-        cut = shard_leaf(path, full, mesh) if mesh is not None else None
-        local = list(full)
-        if cut is not None:
-            local[cut[0]] = cut[2] - cut[1]
+        cut = shard_leaf(path, full, mesh, tp) if tp is not None else None
+        local = _local(full, cut)
         if law == "zeros":
             return torch.zeros(local, dtype=dtype, device=device)
         if law == "ones":

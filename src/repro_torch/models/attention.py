@@ -21,18 +21,23 @@ from repro_torch.models.layers import apply_rope, rmsnorm
 NEG_INF = -1e30
 
 
-def qkv_proj(p, cfg, x, positions):
+def qkv_proj(p, cfg, x, positions, heads=None):
     """x: (B, S, d) -> q (B, S, H, hd), k/v (B, S, KVH, hd), roped
-    (and qk-normed where the config says so)."""
+    (and qk-normed where the config says so). ``heads``: (H, KVH), the
+    rank's head counts under tensor parallelism (``parallel.tensor``),
+    whose weights hold those heads' columns; the config's by default. The
+    norms are per ``head_dim`` and RoPE per head, so a rank applies them
+    to its heads alone."""
     B, S, _ = x.shape
+    H, KVH = heads or (cfg.n_heads, cfg.n_kv_heads)
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = q.reshape(B, S, H, cfg.head_dim)
+    k = k.reshape(B, S, KVH, cfg.head_dim)
+    v = v.reshape(B, S, KVH, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)

@@ -13,9 +13,15 @@ Under a mesh (``Runtime.mesh``) attention has the reference's two
 sequence-parallel branches: with ``attn_seq_parallel`` prefill runs
 ``ring_attention``, and with ``decode_kv_shard`` "seq" each rank's cache
 holds its slice of the positions and decode runs
-``seq_sharded_decode_attention``. Otherwise ("heads") every rank
-computes every head, as on one card. MoE layers run expert-parallel over
-the mesh's ``model`` axis (``moe_apply``); Mamba2 layers are replicated.
+``seq_sharded_decode_attention``; attention then stays whole on every
+rank. Otherwise ("heads") the layers run tensor-parallel over the mesh's
+``model`` axis where ``Runtime.tensor`` splits them: a rank attends with
+its heads through the same kernels (flash on (B*H/n, S, hd), decode over
+its KVH/n cache heads, the same G), runs its share of each MLP's hidden
+units and of Mamba2's heads, and each row-parallel product (``wo``, an
+MLP's ``w_out``, Mamba2's ``w_out``) is summed over ``model``. MoE
+layers run expert-parallel (``moe_apply``); the dense residual's or the
+shared experts' partial joins the experts' before their one reduction.
 
 Training runs ``block_train``: the same blocks over the whole sequence
 with no cache, through plain tensor ops only (``chunked_attention``,
@@ -33,6 +39,7 @@ from repro_torch.models.moe import moe_apply, moe_train, route
 from repro_torch.models.ssm import mamba_apply
 from repro_torch.parallel.collectives import (
     ring_attention, seq_sharded_decode_attention)
+from repro_torch.parallel.tensor import WHOLE
 
 # Cache positions each split of the contiguous decode kernel sweeps. A
 # paged engine whose page_size equals it decodes bit-identically to the
@@ -61,10 +68,15 @@ def attn_block(p, cfg, x, positions, *, rt=None, cache=None, lengths=None,
     with ``rt.decode_kv_shard(cfg) == "seq"`` the cache is this rank's
     slice of the positions and decode runs
     ``seq_sharded_decode_attention``, whose insert rule leaves a full
-    row's cache as it is (``full`` is not needed there).
+    row's cache as it is (``full`` is not needed there). Where
+    ``rt.tensor(cfg)`` splits attention, q, k, v and the cache hold the
+    rank's heads, and the output is the sum over ``model`` of the ranks'
+    ``o @ wo`` partials.
     """
     B, S, _ = x.shape
-    q, k, v = qkv_proj(p, cfg, x, positions)
+    tp = rt.tensor(cfg) if rt is not None else WHOLE
+    q, k, v = qkv_proj(p, cfg, x, positions,
+                       (tp.heads(cfg), tp.kv_heads(cfg)))
     mesh = rt.mesh if rt is not None else None
     if cache is None:
         if mesh is not None and rt.parallel.attn_seq_parallel:
@@ -86,8 +98,8 @@ def attn_block(p, cfg, x, positions, *, rt=None, cache=None, lengths=None,
                                   block_s)
         o = o[:, None]
         new_cache = cache
-    out = o.reshape(B, S, cfg.q_dim) @ p["wo"]
-    return out, new_cache
+    out = o.reshape(B, S, -1) @ p["wo"]
+    return (tp.reduce(out) if tp.attn else out), new_cache
 
 
 def _decode_attention(q, k, v, k_cache, v_cache, lengths, page_table, full,
@@ -125,8 +137,10 @@ def block_apply(p, cfg, x, positions, i: int, *, rt=None, cache=None,
     ``cache`` is the layer's: (k, v) for attention, (conv tails, state)
     for Mamba2; ``lengths``, ``page_table``, ``full`` and ``block_s``
     concern attention only. ``rt``: the runtime (``attn_block``; its mesh
-    also runs the MoE layer expert-parallel).
+    also runs the MoE layer expert-parallel, and ``rt.tensor(cfg)`` splits
+    the Mamba2 heads and the MLPs).
     """
+    tp = rt.tensor(cfg) if rt is not None else WHOLE
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if cfg.block_kind(i) == "attn":
         out, new_cache = attn_block(p["attn"], cfg, h, positions, rt=rt,
@@ -134,29 +148,47 @@ def block_apply(p, cfg, x, positions, i: int, *, rt=None, cache=None,
                                     page_table=page_table, full=full,
                                     block_s=block_s)
     else:
-        out, new_cache = mamba_apply(p["mamba"], cfg, h, cache=cache)
+        out, new_cache = mamba_apply(p["mamba"], cfg, h, cache=cache, tp=tp)
     mesh = rt.mesh if rt is not None else None
-    x, _ = _ffn(p, cfg, x + out, i, lambda *a: moe_apply(*a, mesh=mesh))
+    x, _ = _ffn(p, cfg, x + out, i,
+                lambda *a, **kw: moe_apply(*a, mesh=mesh, **kw), tp)
     return x, new_cache
 
 
-def _ffn(p, cfg, x, i: int, moe_fn):
+def _ffn(p, cfg, x, i: int, moe_fn, tp=WHOLE):
     """The block's second half: the MoE layer through ``moe_fn`` (with
     the dense residual or shared MLP where the config has one), the dense
-    MLP, or nothing. Returns (x, aux losses: the router's, or {})."""
+    MLP, or nothing. Returns (x, aux losses: the router's, or {}).
+
+    An MLP that ``tp`` splits returns this rank's partial: the dense MLP's
+    is summed over ``model`` here; on an MoE layer the dense residual's
+    and the shared experts' go to ``moe_fn`` as ``partial``, which adds
+    them to the rank's expert outputs before its one reduction. A whole
+    MLP adds in after, in the order one rank adds them."""
     aux = {}
     if cfg.is_moe_layer(i):
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
         ids, wts, aux = route(p["moe"], cfg, h)
-        y = moe_fn(p["moe"], cfg, h, ids, wts)
+        widths = {}
         if cfg.dense_residual and cfg.d_ff > 0:
-            y = y + mlp_apply(p["dense_mlp"], h, cfg.mlp_act)
+            widths["dense_mlp"] = cfg.d_ff
         if cfg.n_shared_experts > 0:
-            y = y + mlp_apply(p["shared_mlp"], h, cfg.mlp_act)
+            widths["shared_mlp"] = cfg.n_shared_experts * cfg.d_ff_expert
+        partial = None
+        for key, width in widths.items():
+            if tp.mlp(width):
+                out = mlp_apply(p[key], h, cfg.mlp_act)
+                partial = out if partial is None else partial + out
+        y = (moe_fn(p["moe"], cfg, h, ids, wts) if partial is None
+             else moe_fn(p["moe"], cfg, h, ids, wts, partial=partial))
+        for key, width in widths.items():
+            if not tp.mlp(width):
+                y = y + mlp_apply(p[key], h, cfg.mlp_act)
         x = x + y
     elif cfg.d_ff > 0:
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h, cfg.mlp_act)
+        y = mlp_apply(p["mlp"], h, cfg.mlp_act)
+        x = x + (tp.reduce(y) if tp.mlp(cfg.d_ff) else y)
     return x, aux
 
 

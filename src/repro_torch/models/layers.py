@@ -33,6 +33,9 @@ def apply_rope(x, positions, theta: float):
 
 
 def mlp_apply(p, x, act: str):
+    """The MLP of ``p``'s hidden units. Split by columns (``w_in``,
+    ``w_gate``) and rows (``w_out``) over ranks, it returns this rank's
+    row-parallel partial, which the caller sums over ``model``."""
     h = x @ p["w_in"]
     if act == "swiglu":
         g = x @ p["w_gate"]

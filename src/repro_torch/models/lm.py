@@ -13,7 +13,9 @@ loops over per-layer views.
 
 Serving (``prefill``, ``decode``) runs under ``torch.no_grad`` through the
 kernels, on one rank or, with a ``Runtime`` whose mesh spans several, as
-one rank of that mesh (``models.blocks``). Training (``loss``) runs the
+one rank of that mesh (``models.blocks``): the rank's params, caches and
+compute then hold its share of the heads, KV heads, MLP units, vocab rows
+and Mamba2 heads (``Runtime.tensor``). Training (``loss``) runs the
 blocks' plain training route under
 autograd, each pattern repeat under ``torch.utils.checkpoint`` unless
 ``remat == "none"``: the counterpart of the reference's ``jax.checkpoint``
@@ -34,6 +36,8 @@ from repro_torch.configs.base import ParallelConfig
 from repro_torch.models.blocks import DECODE_BLOCK_S, block_apply, block_train
 from repro_torch.models.layers import rmsnorm
 from repro_torch.parallel.sharding import AXIS_MODEL
+from repro_torch.parallel.tensor import (
+    WHOLE, TensorParallel, decode_kv_shard, tensor_plan)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -115,10 +119,15 @@ class Runtime:
     a ``ParallelConfig`` and the mesh (``launch.mesh.Mesh``; None for one
     rank, where the passes are the single-card path, bit for bit).
 
-    The reference's ``padded_heads``, ``shard_heads`` and
-    ``shard_activations`` only steer GSPMD's placement of activations,
-    and ``block_axes`` its FSDP re-gather; the port keeps activations
-    whole on every rank and has no counterpart of them.
+    On a mesh whose ``model`` axis holds n ranks, each rank holds and
+    computes its share of the dense leaves (``tensor``: the rank's heads,
+    KV heads, Mamba2 heads and vocab rows, ``parallel.tensor``), and of the
+    experts (``models.moe``). That is what the reference's ``padded_heads``
+    and ``shard_heads`` ask of GSPMD; the port splits only whole heads, so
+    it pads none. The residual stream stays whole on every rank (the
+    reference's ``shard_activations`` pins its batch to the data axes
+    only for GSPMD's sake), and ``block_axes``, the FSDP re-gather, has no
+    counterpart: the port serves under the "tp" rules.
     """
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     mesh: Any = None
@@ -127,13 +136,12 @@ class Runtime:
         """"heads" (every rank holds every position) or "seq" (each rank
         a slice of the positions). "auto" shards the sequence when the
         model axis outnumbers the KV heads."""
-        mode = self.parallel.decode_kv_shard
-        if mode != "auto":
-            return mode
-        if self.mesh is None or AXIS_MODEL not in self.mesh.axis_names:
-            return "heads"
-        return ("heads" if cfg.n_kv_heads >= self.mesh.shape[AXIS_MODEL]
-                else "seq")
+        return decode_kv_shard(cfg, self.mesh, self.parallel)
+
+    def tensor(self, cfg) -> TensorParallel:
+        """This rank's split of ``cfg``'s dense leaves
+        (``parallel.tensor.tensor_plan``)."""
+        return tensor_plan(cfg, self.mesh, self.parallel)
 
     def seq_window(self, cfg, max_len: int) -> tuple[int, int] | None:
         """The positions [start, stop) of a ``max_len`` cache that this
@@ -179,31 +187,60 @@ class LM(nn.Module):
             for r in range(self.repeats)]
 
     # ------------------------------------------------------------ embed
-    def embed(self, batch):
-        """batch: tokens (B, S[, ncb]) int; optional patches (B, Np, d)."""
+    def embed(self, batch, rt: Runtime | None = None):
+        """batch: tokens (B, S[, ncb]) int; optional patches (B, Np, d).
+
+        Under ``rt``'s vocab split each rank holds rows [lo, hi) of every
+        codebook's table: a token outside them reads 0, and each
+        codebook's lookup is summed over ``model`` on its own (x + 0 is
+        exact) before the codebooks add in order, as on one rank, so the
+        result equals the one-rank embedding bit for bit."""
         cfg = self.cfg
         emb = self.params["embed"]                     # (ncb, Vp, d)
         tokens = batch["tokens"].to(self.device).long()
+        tp = rt.tensor(cfg) if rt is not None else WHOLE
+        ncb = cfg.n_codebooks
+        per_cb = tokens[..., None] if ncb <= 1 else tokens
         # F.embedding: its gradient on the card sums each row's uses in a
         # fixed order, which the bitwise preempt/resume check rests on
-        if cfg.n_codebooks > 1:
+        if tp.vocab:
+            lo, hi = tp.vocab_rows(cfg)
+            if emb.shape[1] != hi - lo:
+                raise ValueError(f"embed holds {emb.shape[1]} vocab rows, "
+                                 f"the runtime's split {hi - lo}")
+            local = per_cb - lo
+            inside = (local >= 0) & (local < hi - lo)
+            local = torch.where(inside, local, 0)
+            parts = tp.reduce(torch.stack([
+                torch.where(inside[..., c, None],
+                            F.embedding(local[..., c], emb[c]), 0)
+                for c in range(emb.shape[0])]))
+        else:
+            parts = [F.embedding(per_cb[..., c], emb[c])
+                     for c in range(emb.shape[0])]
+        if ncb > 1:
             x = torch.zeros(tokens.shape[:2] + (cfg.d_model,),
                             dtype=emb.dtype, device=self.device)
-            for c in range(cfg.n_codebooks):
-                x = x + F.embedding(tokens[..., c], emb[c])
+            for c in range(ncb):
+                x = x + parts[c]
         else:
-            x = F.embedding(tokens, emb[0])
+            x = parts[0]
         if cfg.vision_stub and "patches" in batch:
             patches = batch["patches"].to(self.device, x.dtype)
             x = torch.cat([patches, x], dim=1)
         return x
 
-    def logits(self, x):
+    def logits(self, x, rt: Runtime | None = None):
         """Over ``vocab_padded``: greedy argmax sees the padded columns too,
-        as in the JAX engine."""
+        as in the JAX engine. Under ``rt``'s vocab split each rank's
+        columns are gathered over ``model`` in column order."""
+        head = self.params["head"]                     # (ncb, d, Vp[/n])
         if self.cfg.n_codebooks > 1:
-            return torch.einsum("bsd,cdv->bscv", x, self.params["head"])
-        return x @ self.params["head"][0]
+            out = torch.einsum("bsd,cdv->bscv", x, head)
+        else:
+            out = x @ head[0]
+        tp = rt.tensor(self.cfg) if rt is not None else WHOLE
+        return tp.gather(out, -1) if tp.vocab else out
 
     # ------------------------------------------------------------- train
     def backbone(self, x, positions, parallel: ParallelConfig):
@@ -268,8 +305,9 @@ class LM(nn.Module):
     def prefill(self, batch, rt: Runtime | None = None):
         """Full-sequence forward; returns (last_logits (B, [ncb,] Vp),
         caches {"pos{i}": ...} in the module's layouts with B rows and, for
-        attention, S positions), on every rank of ``rt``'s mesh."""
-        x = self.embed(batch)
+        attention, S positions), on every rank of ``rt``'s mesh: its caches
+        hold the rank's KV and Mamba2 heads (``Runtime.tensor``)."""
+        x = self.embed(batch, rt)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
         per_pos = [[] for _ in range(self.period)]
@@ -278,7 +316,7 @@ class LM(nn.Module):
                 x, cache = block_apply(p, self.cfg, x, positions, i, rt=rt)
                 per_pos[i].append(cache)
         x = rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps)
-        logits = self.logits(x[:, -1:])
+        logits = self.logits(x[:, -1:], rt)
         caches = {f"pos{i}": _stack(per_pos[i]) for i in range(self.period)}
         return logits[:, 0], caches
 
@@ -300,7 +338,7 @@ class LM(nn.Module):
         Writes each row's new K/V, conv tails and SSM state into ``caches``
         in place and returns (logits (B, [ncb,] Vp), caches).
         """
-        x = self.embed({"tokens": tokens})
+        x = self.embed({"tokens": tokens}, rt)
         positions = lengths.long()[:, None]
         for r, layer in enumerate(self._layers):
             for i, p in enumerate(layer):
@@ -310,7 +348,7 @@ class LM(nn.Module):
                                    page_table=page_table, full=full,
                                    block_s=block_s)
         x = rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps)
-        return self.logits(x)[:, 0], caches
+        return self.logits(x, rt)[:, 0], caches
 
     # ------------------------------------------------------------ caches
     def cache_kind(self, key: str) -> str:
@@ -350,49 +388,56 @@ class LM(nn.Module):
                     dst[:, int(pages[j0 // ps]), :cs].copy_(src[:, j0:j0 + cs])
 
     # ------------------------------------------------- cache construction
-    def _ssm_cache(self, batch_size: int):
-        """A Mamba2 position's cache as meta tensors (shape and dtype)."""
+    def _ssm_cache(self, batch_size: int, tp: TensorParallel):
+        """A Mamba2 position's cache as meta tensors (shape and dtype), at
+        the rank's heads."""
         cfg, R = self.cfg, self.repeats
+        h0, h1 = tp.ssm_heads(cfg)
         k1, ch_bc = cfg.conv_dim - 1, cfg.ssm_groups * cfg.d_state
-        conv = {"x": (R, batch_size, k1, cfg.d_inner),
+        conv = {"x": (R, batch_size, k1, (h1 - h0) * cfg.ssm_head_dim),
                 "B": (R, batch_size, k1, ch_bc),
                 "C": (R, batch_size, k1, ch_bc)}
-        state = (R, batch_size, cfg.n_ssm_heads, cfg.ssm_head_dim,
-                 cfg.d_state)
+        state = (R, batch_size, h1 - h0, cfg.ssm_head_dim, cfg.d_state)
         return ({k: torch.empty(s, dtype=self.dtype, device="meta")
                  for k, s in conv.items()},
                 torch.empty(state, dtype=torch.float32, device="meta"))
 
-    def _shapes(self, batch_size: int, kv_shape):
+    def _shapes(self, batch_size: int, kv_shape, tp: TensorParallel):
         kv = torch.empty(kv_shape, dtype=self.dtype, device="meta")
         return {f"pos{i}": (kv, kv) if self.cfg.block_kind(i) == "attn"
-                else self._ssm_cache(batch_size)
+                else self._ssm_cache(batch_size, tp)
                 for i in range(self.period)}
 
-    def cache_shapes(self, batch_size: int, max_len: int):
+    def cache_shapes(self, batch_size: int, max_len: int,
+                     rt: Runtime | None = None):
         """{"pos{i}": cache} as meta tensors: attention (k, v) each (R, B,
-        S, KVH, hd); Mamba2 (conv tails, fp32 state)."""
+        S, KVH, hd); Mamba2 (conv tails, fp32 state); KVH and the Mamba2
+        heads are ``rt``'s rank's (``Runtime.tensor``)."""
         cfg = self.cfg
+        tp = rt.tensor(cfg) if rt is not None else WHOLE
         return self._shapes(batch_size, (self.repeats, batch_size, max_len,
-                                         cfg.n_kv_heads, cfg.head_dim))
+                                         tp.kv_heads(cfg), cfg.head_dim), tp)
 
     def paged_cache_shapes(self, batch_size: int, n_pages: int,
-                           page_size: int):
+                           page_size: int, rt: Runtime | None = None):
         """Attention KV in a shared page pool, each (R, n_pages, page_size,
         KVH, hd), addressed through a per-row page table; Mamba2 caches
-        hold no sequence axis and stay slot-indexed."""
+        hold no sequence axis and stay slot-indexed. A page holds the
+        rank's KV heads."""
         cfg = self.cfg
+        tp = rt.tensor(cfg) if rt is not None else WHOLE
         return self._shapes(batch_size, (self.repeats, n_pages, page_size,
-                                         cfg.n_kv_heads, cfg.head_dim))
+                                         tp.kv_heads(cfg), cfg.head_dim), tp)
 
     def _zeros(self, shapes):
         return tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype,
                                               device=self.device), shapes)
 
-    def init_cache(self, batch_size: int, max_len: int):
-        return self._zeros(self.cache_shapes(batch_size, max_len))
+    def init_cache(self, batch_size: int, max_len: int,
+                   rt: Runtime | None = None):
+        return self._zeros(self.cache_shapes(batch_size, max_len, rt))
 
     def init_paged_cache(self, batch_size: int, n_pages: int,
-                         page_size: int):
+                         page_size: int, rt: Runtime | None = None):
         return self._zeros(self.paged_cache_shapes(batch_size, n_pages,
-                                                   page_size))
+                                                   page_size, rt))

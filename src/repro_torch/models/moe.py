@@ -101,23 +101,32 @@ def _experts(p, cfg, xe, gate, product):
     return (ye.float() * gate).to(xe.dtype)
 
 
-def moe_apply(p, cfg, x, ids, wts, mesh=None):
+def moe_apply(p, cfg, x, ids, wts, mesh=None, partial=None):
     """x: (B, S, d); ids, wts: (B, S, K) from ``route``. Returns (B, S, d)
     in x's dtype: the gated sum of each token's kept experts.
 
     With ``mesh`` (``launch.mesh.Mesh``) whose ``model`` axis of n ranks
     divides E, ``p``'s expert weights are this rank's E / n experts (as
     ``bridge`` shards them) and the result is the all-reduce over
-    ``model`` of every rank's share; otherwise every expert is local."""
+    ``model`` of every rank's share; otherwise every expert is local.
+    ``partial`` (B, S, d): this rank's row-parallel partial of the dense
+    residual or shared MLP (``blocks._ffn``), added to the rank's share
+    before that one reduction, or summed over ``model`` on its own and
+    added when every expert is local."""
     E = cfg.n_experts
     n = mesh_axis_size(mesh, AXIS_MODEL) if mesh is not None else 1
     if n == 1 or E % n:
-        return _moe_local(p, cfg, x, ids, wts, 0, E)
+        y = _moe_local(p, cfg, x, ids, wts, 0, E)
+        if partial is not None:
+            y = y + all_reduce(partial, mesh.group(AXIS_MODEL))
+        return y
     n_local = E // n
     rows = batch_rows(mesh, x.shape[0])
     b = rows[0] if rows else slice(None)
     y = _moe_local(p, cfg, x[b], ids[b], wts[b],
                    mesh.coords[AXIS_MODEL] * n_local, n_local)
+    if partial is not None:
+        y = y + partial[b]
     y = all_reduce(y, mesh.group(AXIS_MODEL))
     return all_gather(y, 0, rows[1]) if rows else y
 

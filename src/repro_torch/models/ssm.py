@@ -11,6 +11,15 @@ conv stay plain ops, as JAX leaves them to XLA.
 Caches per layer: ``({"x", "B", "C"} conv tails (B, k-1, ch) in the
 model's dtype, SSM state (B, nh, hp, ds) fp32)``. Decode writes the new
 conv tails and state into the cache tensors in place.
+
+Under tensor parallelism (``parallel.tensor``) a rank runs its nh / n
+heads: its columns of ``w_z``, ``w_x``, ``conv_x`` and ``w_dt``, its
+``a_log``, ``d_skip`` and ``dt_bias``, the whole B/C projections (of
+which it reads the groups its heads use), and its rows of ``w_out``,
+whose partials are summed over ``model``. The gated norm is one RMSNorm
+over all of ``d_inner``, so the ranks' fp32 sums of squares are summed
+over ``model`` before the rsqrt: a norm over the rank's channels alone
+would be another function.
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rmsnorm
+from repro_torch.parallel.tensor import WHOLE, ssm_group_range
 
 
 def causal_conv(x, w, prev=None):
@@ -113,7 +123,18 @@ def ssd_decode_step(xh, dt, A, Bg, Cg, state):
     return y.to(xh.dtype), new_state
 
 
-def mamba_apply(p, cfg, x, *, cache=None, train=False):
+def split_rmsnorm(scale, x, eps: float, width: int, tp):
+    """RMSNorm over a ``width``-wide dim of which this rank holds the
+    slice x (and ``scale``'s matching slice): the fp32 sums of squares are
+    summed over ``tp``'s ``model`` group, then divided by ``width``."""
+    dt = x.dtype
+    x = x.float()
+    var = tp.reduce(x.square().sum(dim=-1, keepdim=True)) / width
+    x = x * torch.rsqrt(var + eps)
+    return (x * scale.float()).to(dt)
+
+
+def mamba_apply(p, cfg, x, *, cache=None, train=False, tp=WHOLE):
     """x: (B, S, d) -> (out (B, S, d), cache).
 
     Prefill (``cache is None``) scans the whole prompt and returns the
@@ -121,11 +142,16 @@ def mamba_apply(p, cfg, x, *, cache=None, train=False):
     it (``ssd_chunked``'s rule), else ``ValueError``. Decode (S == 1)
     takes the layer's cache, advances it one token in place and returns it.
     ``train``: the whole sequence from a zero state through
-    ``ssd_chunked``, never a kernel; the returned cache is None.
+    ``ssd_chunked``, never a kernel; the returned cache is None. ``tp``:
+    this rank's split (``parallel.tensor``); where it splits the Mamba2
+    heads, ``p`` and the cache hold the rank's heads and the output is
+    the sum over ``model`` of the ranks' partials.
     """
     B, S, _ = x.shape
-    nh, hp, ds, ng = (cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.d_state,
-                      cfg.ssm_groups)
+    hp, ds, ng = cfg.ssm_head_dim, cfg.d_state, cfg.ssm_groups
+    h0, h1 = tp.ssm_heads(cfg)
+    nh = h1 - h0
+    g0, g1 = ssm_group_range(cfg, tp)
     z = x @ p["w_z"]
     xs = x @ p["w_x"]
     Bm = x @ p["w_B"]
@@ -138,8 +164,9 @@ def mamba_apply(p, cfg, x, *, cache=None, train=False):
     dt = F.softplus(dt + p["dt_bias"])                    # (B, S, nh)
     A = -torch.exp(p["a_log"])
     xh = xs.reshape(B, S, nh, hp)
-    Bg = Bm.reshape(B, S, ng, ds)
-    Cg = Cm.reshape(B, S, ng, ds)
+    # the groups this rank's heads read (all of them on one rank)
+    Bg = Bm.reshape(B, S, ng, ds)[:, :, g0:g1].contiguous()
+    Cg = Cm.reshape(B, S, ng, ds)[:, :, g0:g1].contiguous()
     if train:
         y, _ = ssd_chunked(xh, dt, A, Bg, Cg, cfg.ssm_chunk)
         new_cache = None
@@ -163,7 +190,12 @@ def mamba_apply(p, cfg, x, *, cache=None, train=False):
         cache[1].copy_(state)
         new_cache = cache
     y = y + (xh.float() * p["d_skip"][:, None]).to(y.dtype)
-    y = y.reshape(B, S, cfg.d_inner)
-    y = rmsnorm(p["norm"], y, cfg.norm_eps)
+    y = y.reshape(B, S, nh * hp)
+    if tp.ssm:
+        y = split_rmsnorm(p["norm"][h0 * hp:h1 * hp], y, cfg.norm_eps,
+                          cfg.d_inner, tp)
+    else:
+        y = rmsnorm(p["norm"], y, cfg.norm_eps)
     y = y * F.silu(z.float()).to(y.dtype)
-    return y @ p["w_out"], new_cache
+    out = y @ p["w_out"]
+    return (tp.reduce(out) if tp.ssm else out), new_cache

@@ -1,9 +1,13 @@
 """Serving across ranks on ``torch.distributed`` (``repro.parallel``).
 
-``sharding`` holds the logical-axis placement rules and ``collectives``
-the explicit collectives of the serving path: sequence-sharded decode
-attention and ring prefill attention; expert parallelism lives in
-``models.moe.moe_apply``. The mesh comes from ``launch.mesh``.
+``sharding`` holds the logical-axis placement rules, ``tensor`` which
+dense leaves a rank splits over ``model`` under them (heads, MLPs, vocab,
+Mamba2 heads: tensor parallelism), and ``collectives`` the explicit
+collectives of the serving path: the sums and gathers that join a
+split, sequence-sharded decode attention and ring prefill attention;
+expert parallelism lives in ``models.moe.moe_apply``. ``check`` holds
+those beside one rank's results for the card tests and the smoke. The
+mesh comes from ``launch.mesh``.
 
 The reference's ``compat.py`` only bridges JAX API versions (and
 ``tpu_compiler_params``), so it has no counterpart. Its training half,

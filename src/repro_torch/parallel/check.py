@@ -1,12 +1,14 @@
-"""The serving collectives held against the single-rank kernels on the
-same inputs, on one rank of a mesh.
+"""Serving across ranks held against one rank on the same inputs.
 
 ``collectives_against_kernels`` runs ``seq_sharded_decode_attention`` on
 this rank's slice of a whole cache and ``ring_attention`` on whole
 prefill inputs, and beside them the kernels that one rank runs on the
 whole tensors (the decode kernel, and flash through
-``prefill_attention``). The card tests run it at small shapes and
-``chip_smoke.py``'s parallel phase at the serving path's.
+``prefill_attention``). ``row_parallel_against_whole`` does the same for
+tensor parallelism's row-parallel product. ``join_heads`` puts the
+ranks' KV slices back together by heads, and ``bytes_held`` counts what
+a rank holds against the whole model. The card tests run them at small
+shapes and ``chip_smoke.py``'s parallel phase at the serving path's.
 """
 from __future__ import annotations
 
@@ -55,3 +57,33 @@ def collectives_against_kernels(mesh, q, k, v, lengths, new_k, new_v,
                              and torch.equal(all_gather(vl, 1, group), v)),
         "ring": ring_attention(rq, rk, rv, mesh),
         "ring_want": prefill_attention(rq, rk, rv)}
+
+
+def row_parallel_against_whole(tp, x, w):
+    """(the row-parallel product, the whole product) of x (..., K) and w
+    (K, N), every rank passing the same tensors: this rank multiplies its
+    K / n columns of x by its rows of w, and ``tp`` (``parallel.tensor``)
+    sums the partials over ``model``, as ``wo`` and the ``w_out``s do."""
+    lo, hi = tp.part(w.shape[0])
+    return tp.reduce(x[..., lo:hi] @ w[lo:hi]), x @ w
+
+
+def join_heads(parts):
+    """The ranks' KV cache slices (..., KVH / n, hd), in rank order,
+    joined by heads into (..., KVH, hd)."""
+    return torch.cat(list(parts), dim=-2)
+
+
+def bytes_held(params) -> int:
+    """Bytes of a nested dict of tensors (meta tensors count their
+    shapes): what a rank holds, or with ``bridge.meta_params`` and no
+    mesh, the whole model."""
+    total = 0
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        else:
+            total += node.numel() * node.element_size()
+    return total

@@ -29,7 +29,11 @@ takes one), every rank runs this engine on the same requests: the host
 bookkeeping (lengths, slots, finish order, the length reset) is the same
 on every rank, the forward passes run their collectives
 (``models.blocks``), and every rank returns the same finished requests.
-Under ``decode_kv_shard`` "seq" each rank's contiguous cache holds its
+The LM's weights must be the rank's slices for that runtime
+(``bridge.init_params`` or ``params_from_jax`` with its mesh and
+``ParallelConfig``). Where attention splits by heads, each rank's caches
+and pages hold its KV heads, and its Mamba2 caches its SSM heads. Under
+``decode_kv_shard`` "seq" each rank's contiguous cache holds its
 ``max_len / n`` positions and a prefill splice writes each rank's slice;
 paged KV then raises, as in the reference.
 """
@@ -40,8 +44,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.bridge import meta_params
 from repro_torch.models.blocks import DECODE_BLOCK_S
-from repro_torch.models.lm import LM, Runtime, resolve_device
+from repro_torch.models.lm import LM, Runtime, resolve_device, tree_leaves
 from repro_torch.serve.paged import PagedKVAllocator
 
 
@@ -79,6 +84,14 @@ class Engine:
         if self.rt.mesh is not None and self.rt.mesh.device != self.device:
             raise ValueError(f"mesh lives on {self.rt.mesh.device}, engine "
                              f"on {self.device}")
+        want = dict(tree_leaves(meta_params(
+            lm.cfg, mesh=self.rt.mesh, parallel=self.rt.parallel)))
+        for path, t in tree_leaves(lm.params):
+            if tuple(t.shape) != tuple(want[path].shape):
+                raise ValueError(
+                    f"param {path} holds {tuple(t.shape)}, the runtime's "
+                    f"split {tuple(want[path].shape)}: build the weights "
+                    "with the runtime's mesh and ParallelConfig")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         self.prefill_chunk = prefill_chunk
@@ -98,7 +111,7 @@ class Engine:
             self.pager = None
             self.caches = lm.init_cache(
                 max_batch, max_len if self.window is None
-                else self.window[1] - self.window[0])
+                else self.window[1] - self.window[0], self.rt)
         else:
             if page_size < 1 or max_len % page_size:
                 raise ValueError(
@@ -108,7 +121,8 @@ class Engine:
             n_pages = 1 + max_batch * self.pages_per_slot
             self.pager = PagedKVAllocator(n_pages, page_size=page_size,
                                           reserve_null=True)
-            self.caches = lm.init_paged_cache(max_batch, n_pages, page_size)
+            self.caches = lm.init_paged_cache(max_batch, n_pages, page_size,
+                                              self.rt)
             self._page_table = np.zeros((max_batch, self.pages_per_slot),
                                         np.int32)
         self.steps = 0

@@ -67,7 +67,10 @@ def test_flash_kernel_matches_plain(card, BH, S, Sk, hd, causal, dtype):
                          [(4, 4, 2, 16, 64, 16), (3, 8, 8, 32, 96, 32),
                           (2, 28, 4, 128, 256, 64),
                           # hd 112: 14 (bf16) or 28 (fp32) lanes a row
-                          (2, 64, 8, 112, 256, 64), (3, 7, 1, 112, 128, 32)])
+                          (2, 64, 8, 112, 256, 64), (3, 7, 1, 112, 128, 32),
+                          # G 5 at hd 128: qwen3-14b whole and its 20/4
+                          # heads a rank under tensor parallelism
+                          (2, 40, 8, 128, 256, 64), (8, 20, 4, 128, 256, 64)])
 def test_decode_kernels_match_plain_and_each_other(card, B, H, KVH, hd, S,
                                                    ps, dtype):
     """Contiguous and paged decode against the plain version; zero-length
@@ -313,7 +316,9 @@ def test_gmm_split_over_d_matches_plain_and_repeats(card, dtype):
                           # S < 64; chunk 12 and 48 at ds 128; ng 2
                           (2, 40, 8, 64, 1, 128, 40),
                           (1, 48, 4, 64, 2, 128, 12),
-                          (2, 96, 8, 64, 2, 128, 48)])
+                          (2, 96, 8, 64, 2, 128, 48),
+                          # mamba2's 32 of 64 heads a rank, TP 2
+                          (3, 256, 32, 64, 1, 128, 256)])
 def test_ssd_kernel_matches_plain(card, B, S, nh, hp, ng, ds, chunk, dtype):
     """y and the final state, over several chunks and ragged query
     tiles, with grouped B/C."""
@@ -672,8 +677,9 @@ def test_one_bf16_train_step_of_a_two_layer_musicgen(card):
 # ranks on the one card (NCCL refuses two ranks on one card), and NCCL
 # with a card a rank. Each rank runs the cases on its share and writes
 # its results: the collectives beside the single-rank kernels on the same
-# inputs (``parallel.check``), and expert-parallel MoE, which the test
-# holds against the single-rank ``moe_apply`` here.
+# inputs (``parallel.check``), expert-parallel MoE, which the test holds
+# against the single-rank ``moe_apply`` here, and a tensor-parallel
+# prefill and decode step, held against one rank's logits here.
 _RANKS = r"""
 import json, sys
 import torch
@@ -704,9 +710,28 @@ out.update(collectives_against_kernels(
     mesh, *(c[w] for w in ("q", "k", "v", "lengths", "new_k", "new_v",
                            "rq", "rk", "rv"))))
 caches_equal = out.pop("caches_equal")
+# tensor parallelism: qwen3's smoke config in fp32, heads, MLP and vocab
+# split over the 2 ranks, each rank drawing the whole stream on the CPU
+from repro_torch.bridge import init_params
+from repro_torch.models.lm import LM, Runtime, tree_map
+tcfg = dataclasses.replace(get_smoke_config("qwen3-14b"), dtype="float32")
+rt = Runtime(mesh=mesh)
+lm = LM(tcfg, tree_map(lambda t: t.to(dev), init_params(
+    tcfg, torch.Generator().manual_seed(0), "cpu", mesh=mesh)), device=dev)
+ops.reset_launch_counts()
+logits, pre = lm.prefill({"tokens": c["tp_tokens"]}, rt=rt)
+caches = lm.init_cache(2, 32, rt)
+for b in range(2):
+    lm.splice(caches, pre, b, b)
+dec, _ = lm.decode(c["tp_next"], torch.full((2,), 16, dtype=torch.int32,
+                                             device=dev), caches, rt=rt)
+tp_launches = ops.launch_counts()
+out.update(tp_prefill=logits, tp_decode=dec)
 torch.save({k: v.cpu() for k, v in out.items()}, f"{work}/out{rank}.pt")
 json.dump({"moe_gmm": gmm, "local_experts": p["w_in"].shape[0],
-           "caches_equal": caches_equal,
+           "caches_equal": caches_equal, "tp_launches": tp_launches,
+           "tp_heads": lm.params["blocks"]["pos0"]["attn"]["wq"].shape[-1]
+           // tcfg.head_dim,
            "backend": dist.get_backend(), "device": str(mesh.device)},
           open(f"{work}/meta{rank}.json", "w"))
 dist.destroy_process_group()
@@ -738,7 +763,9 @@ def _rank_case():
         "lengths": torch.tensor([0, 77, 200, S], dtype=torch.int32),
         "new_k": r(B, KVH, hd), "new_v": r(B, KVH, hd),
         "rq": r(2, 128, H, hd), "rk": r(2, 128, KVH, hd),
-        "rv": r(2, 128, KVH, hd)}
+        "rv": r(2, 128, KVH, hd),
+        "tp_tokens": torch.randint(1, 256, (2, 16), generator=g),
+        "tp_next": torch.randint(1, 256, (2, 1), generator=g)}
 
 
 _WORLDS = {}
@@ -826,3 +853,35 @@ def test_ring_prefill_within_bf16_of_the_flash_kernel(card, backend,
         _close(out["ring"], out["ring_want"], torch.bfloat16)
         assert torch.equal(out["ring"], outs[0]["ring"])
         assert torch.equal(out["ring_want"], outs[0]["ring_want"])
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_tensor_parallel_logits_equal_one_rank(card, backend,
+                                               tmp_path_factory):
+    """qwen3's smoke config in fp32 over 2 ranks, heads (1 KV head a
+    rank), MLP and vocab split: the prefill's and a decode step's logits
+    within 1e-4 of one rank's on the card, equal on both ranks, through
+    flash and decode at the rank's 2 heads."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import LM, tree_map
+    _, _, case, outs, metas = _world(backend, tmp_path_factory)
+    cfg = dataclasses.replace(get_smoke_config("qwen3-14b"), dtype="float32")
+    lm = LM(cfg, tree_map(lambda t: t.cuda(), init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu")), device="cuda")
+    logits, pre = lm.prefill({"tokens": case["tp_tokens"].cuda()})
+    caches = lm.init_cache(2, 32)
+    for b in range(2):
+        lm.splice(caches, pre, b, b)
+    dec, _ = lm.decode(case["tp_next"].cuda(), torch.full(
+        (2,), 16, dtype=torch.int32, device="cuda"), caches)
+    for out, meta in zip(outs, metas):
+        assert meta["tp_heads"] == cfg.n_heads // 2
+        assert meta["tp_launches"]["flash_attention"] == cfg.n_layers
+        assert meta["tp_launches"]["decode_attention"] == cfg.n_layers
+        for key, want in (("tp_prefill", logits), ("tp_decode", dec)):
+            torch.testing.assert_close(out[key], want.cpu(), rtol=1e-4,
+                                       atol=1e-4)
+            assert torch.equal(out[key], outs[0][key])

@@ -11,8 +11,11 @@ the CPU, in fp32.
   at ``max_len``, a batch that does not divide over ``data``, a ring whose
   sequence does not divide, drops at capacity factor 1.0.
 - ``LM.prefill`` and 4 ``LM.decode`` steps under each mesh (ring
-  prefill, sequence-sharded decode, experts split) within 1e-4 on logits
+  prefill, sequence-sharded decode, experts split; the MLPs, vocab and
+  Mamba2 heads split too, attention stays whole) within 1e-4 on logits
   of the reference's, for arctic's and jamba's smoke configs.
+  ``tests/test_torch_tensor_parallel.py`` holds the default ("heads")
+  runtime, attention split by heads.
 - The port's ``Engine`` under (1, 2) and (1, 4) serves the same greedy
   tokens in the same finish order as its single-rank ``Engine`` and the
   JAX ``Engine``, on every rank.
@@ -53,6 +56,7 @@ from repro_torch.configs.base import ParallelConfig  # noqa: E402
 from repro_torch.models.lm import LM, Runtime, tree_leaves  # noqa: E402
 from repro_torch.parallel.sharding import (  # noqa: E402
     batch_axes, mesh_axis_size, resolve_spec, spec_tree)
+from repro_torch.parallel.tensor import tensor_plan  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -239,15 +243,16 @@ for data, model in spec["worlds"][str(world)]:
     for arch in spec["lm_archs"]:
         cfg = dataclasses.replace(configs.get_smoke_config(arch),
                                   dtype="float32")
-        lm = LM(cfg, params_from_jax(nested(arch + "/params/"), "cpu",
-                                     mesh=mesh), device="cpu")
         rt = Runtime(ParallelConfig(**spec["seq"]), mesh)
+        lm = LM(cfg, params_from_jax(nested(arch + "/params/"), "cpu",
+                                     mesh=mesh, cfg=cfg,
+                                     parallel=rt.parallel), device="cpu")
         toks = t(inp[f"{arch}/prompt"])
         B, S = toks.shape
         logits, pre = lm.prefill({"tokens": toks}, rt=rt)
         out[f"{tag}/{arch}/prefill"] = logits
         window = rt.seq_window(cfg, spec["lm_max_len"])
-        caches = lm.init_cache(B, window[1] - window[0])
+        caches = lm.init_cache(B, window[1] - window[0], rt)
         for b in range(B):
             lm.splice(caches, pre, b, b, window=window)
         for s in range(spec["steps"]):
@@ -260,9 +265,11 @@ for data, model in spec["worlds"][str(world)]:
         cfg = configs.get_smoke_config(arch)
         cfg = dataclasses.replace(cfg, dtype="float32",
                                   capacity_factor=cfg.n_experts / cfg.top_k)
+        seq = ParallelConfig(**spec["seq"])
         lm = LM(cfg, params_from_jax(nested(arch + "/params/"), "cpu",
-                                     mesh=mesh), device="cpu")
-        eng = Engine(lm, rt=Runtime(ParallelConfig(**spec["seq"]), mesh),
+                                     mesh=mesh, cfg=cfg, parallel=seq),
+                device="cpu")
+        eng = Engine(lm, rt=Runtime(seq, mesh),
                      max_batch=spec["eng_max_batch"],
                      max_len=spec["eng_max_len"], device="cpu")
         reqs = [Request(rid=r["rid"], tokens=np.asarray(r["tokens"], np.int32),
@@ -441,12 +448,15 @@ def test_resolve_spec_guards_and_batch_axes():
 
 
 @pytest.mark.parametrize("arch", ["arctic-480b", "kimi-k2-1t-a32b",
-                                  "jamba-1.5-large-398b", "qwen2-7b"])
+                                  "jamba-1.5-large-398b", "qwen2-7b",
+                                  "musicgen-large", "mamba2-1.3b"])
 @pytest.mark.parametrize("n", [2, 4])
 def test_sharded_init_is_the_slices_of_the_whole_init(arch, n, monkeypatch):
-    """Each rank's experts are the slices of the single-rank draw, drawn
-    whole or slice by slice; every other leaf is the whole leaf; and
-    ``params_from_jax`` keeps the same slices."""
+    """Each rank's leaves are the slices of the single-rank draw, drawn
+    whole or slice by slice, and ``params_from_jax`` keeps the same
+    slices: the experts, and the dense leaves that tensor parallelism
+    splits (heads where they divide, every MLP, the vocab, the Mamba2
+    heads); the norms, the router and the B/C projections stay whole."""
     cfg = dataclasses.replace(tconfigs.get_smoke_config(arch),
                               dtype="float32")
     experts = (["moe", "w_in"], ["moe", "w_gate"], ["moe", "w_out"])
@@ -458,23 +468,31 @@ def test_sharded_init_is_the_slices_of_the_whole_init(arch, n, monkeypatch):
             mesh = SimpleNamespace(
                 **vars(_shape_mesh((1, n), ("data", "model"))),
                 coords={"data": 0, "model": i})
+            tp = tensor_plan(cfg, mesh)
             part = dict(tree_leaves(bridge.init_params(
                 cfg, torch.Generator().manual_seed(0), "cpu", mesh=mesh)))
             carried = dict(tree_leaves(bridge.params_from_jax(
                 _nest({k: v.numpy() for k, v in whole.items()}), "cpu",
-                mesh=mesh)))
+                mesh=mesh, cfg=cfg)))
             assert part.keys() == whole.keys() == carried.keys()
+            cut_paths = set()
             for path, t in part.items():
-                cut = bridge.shard_leaf(path, whole[path].shape, mesh)
+                cut = bridge.shard_leaf(path, whole[path].shape, mesh, tp)
                 want = whole[path]
                 if cut is not None:
-                    assert path.split("/")[-2:] in experts, path
-                    assert t.shape[1] == cfg.n_experts // n
+                    cut_paths.add(path)
                     want = want.narrow(cut[0], cut[1], cut[2] - cut[1])
-                elif cfg.moe:
-                    assert path.split("/")[-2:] not in experts, path
+                    assert t.shape[cut[0]] == whole[path].shape[cut[0]] // n
                 assert torch.equal(t, want), path
                 assert torch.equal(carried[path], want), path
+            families = {"vocab", "mlp"} | ({"heads", "kv_heads"} if tp.attn
+                                            else set()) | (
+                {"ssm_inner"} if tp.ssm else set())
+            split = {p for p in whole if p.split("/")[-2:] in experts
+                     or families & set(bridge.leaf_axes(p))}
+            assert cut_paths == split, sorted(cut_paths ^ split)
+            assert tp.vocab and (not tp.attn or any(
+                p.endswith("/attn/wq") for p in cut_paths))
 
 
 def _nest(flat):
