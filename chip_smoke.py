@@ -64,8 +64,9 @@ parallel. serving across ranks (``repro_torch.parallel``): a world of 2
    every step through the kernels at the rank's heads. Per rank:
    backend, bytes held against the whole model, peak memory, prefill ms
    a group and decode ms a step beside phase 5's one-rank numbers.
-dsp. the DSP control plane on musicgen-large at full width and depth
-   (``benchmarks/torch_serve_fleet.py``, max_batch 8, max_len 48): a
+dsp. the DSP control plane on musicgen-large at full width, depth cut to
+   DSP_LAYERS of 48 (``benchmarks/torch_serve_fleet.py``, max_batch 8,
+   max_len 48; phase 4 serves it at full depth): a
    ``ServeDriver`` on one Montage DAG (paged), equal to its
    ``EmulatedEngine`` twin, then the mix-1/2/4 fleet, 1 workflow per
    tenant, paged (page size 8), contiguous (the decode kernel's split at 8
@@ -121,6 +122,28 @@ elastic. the live ``ElasticController`` (``repro_torch.core.controller``)
    share of wall time in checkpoint I/O and tokens/s inside the steps,
    the node-ticks billed, the peak device memory and the phase's wall.
 
+dp. data-parallel training (``train.train_step`` under a mesh): a world
+   of 2 gloo ranks on the card (``launch.world.spawn_world``) against one
+   rank at the same global batch, on the (b) cut of musicgen-large. (e1)
+   fp32, seq 512, global batch 2 (one row a rank), a mask that leaves the
+   ranks' rows 128 and 512 tokens, ZeRO-1 on, one step: the loss within
+   TRAIN_LOSS_RTOL, every gradient leaf (summed over the ranks) and every
+   updated param within TRAIN_RTOL / TRAIN_ATOL["dense"], then the TF32
+   control; (e2) bf16 through ``train_loop(mesh=)``: 8 steps with
+   checkpoints every 4 and a preemption before step 6, whose 10 losses
+   equal the uninterrupted world's bit for bit, and step 8 from the
+   world's last checkpoint on one rank outside any world within
+   DP_NEXT_RTOL of the world's; (e3) jamba's smoke config in fp32 at
+   capacity factor 0.5: assignments dropped (as many over the ranks as on
+   one rank), loss within TRAIN_LOSS_RTOL and gradients within
+   TRAIN_ATOL["dp jamba"] (16 layers, 14 of them Mamba2, amplify a changed
+   sum order past (e1)'s dense bound: 2.4x it on the H100). It prints each
+   rank's seconds a bf16 step beside one rank's, the shares of the step
+   in the gradient reduction and in the ZeRO-1 all-gathers,
+   the moment bytes a rank holds (measured and counted) against the
+   whole, the full-depth ZeRO-1 bytes from ``meta_params``, and the launch
+   counters, which stay 0 here and in the ranks.
+
 The last three lines are the ``nvidia-smi`` name and power limit, a JSON
 object with one entry per kernel, and ``{"ok": true, "device": ...}``.
 """
@@ -158,12 +181,19 @@ REF_TOL = 1e-3                # fp32 logits, card vs CPU (cuBLAS sum order)
 # 1e-6, or 1e-4 for a deep stack of Mamba2 layers, which amplifies fp32
 # rounding with depth (benchmarks/torch_train_tolerance.py measures it)
 TRAIN_LOSS_RTOL, TRAIN_RTOL = 1e-5, 1e-4
-TRAIN_ATOL = {"dense": 1e-6, "deep ssm": 1e-4}
+# The dp phase's (e3) holds jamba's 16-layer stack in a world against one
+# rank, both on the card: the changed sum order read 2.42 x the dense
+# bound on the H100 (2.4e-6 of the leaf's scale) and 0.034 of the deep-ssm
+# one (PERF.md §6); its atol is about 4x the clean reading
+TRAIN_ATOL = {"dense": 1e-6, "deep ssm": 1e-4, "dp jamba": 1e-5}
 # the control: the card's gradients with TF32 products must exceed the
 # bound by this much (the bound must see a lower precision)
 TF32_CONTROL_MIN = 2.0
 SPIN_CYCLES = 1_000_000       # ~0.5 ms of device spin ahead of a timed call
 ARCH = "musicgen-large"
+# the dsp phase's depth: its fleet runs are host-bound (a decode step's
+# time grows with the layers), and phase 4 serves the full 48
+DSP_LAYERS = 24
 # (arch, layers kept or None for all, smoke config, why)
 PATHS = (
     ("musicgen-large", None, False, "full width and depth"),
@@ -218,6 +248,17 @@ PARALLEL_LOGITS_TOL = 0.25
 # its greedy token), so its decode rows need only their fed token
 TP_LOGITS_TOL = {"qwen3-14b": 0.33, "mamba2-1.3b": 2.3, "arctic-480b": 0.26}
 TP_GREEDY = {"qwen3-14b", "arctic-480b"}
+# the dp phase: a world of DP_WORLD gloo ranks on the card, global batch
+# DP_WORLD (one row a rank); (e2) runs DP_STEPS steps; the timed run
+# DP_TIMED_STEPS after a warm-up step; (e3) drops at DP_CAPACITY_FACTOR
+DP_WORLD, DP_STEPS, DP_TIMED_STEPS = 2, 8, 4
+DP_CAPACITY_FACTOR = 0.5
+# (e2): step DP_STEPS's bf16 loss on one rank from the world's checkpoint
+# against the world's: an fp32 reduction of bf16 logits, where one row a
+# rank and both rows in one product may round the bf16 activations
+# differently; it read 1.2e-7 on the H100 at step 12 of a 12-step run
+# (one fp32 ulp), and a params leaf restored wrong moves it by units
+DP_NEXT_RTOL = 1e-3
 
 
 class SmokeError(RuntimeError):
@@ -1570,8 +1611,9 @@ def phase_parallel(single, smi, runs=PARALLEL_RUNS, cuts=TP_CUTS):
 
 def phase_dsp(smi):
     """The DSP control plane (``repro_torch.core``, ``serve.driver``,
-    ``serve.fleet``) driving musicgen-large at its published widths and
-    depth, through ``benchmarks/torch_serve_fleet.py``: a ``ServeDriver``
+    ``serve.fleet``) driving musicgen-large at its published widths, depth
+    cut to DSP_LAYERS, through ``benchmarks/torch_serve_fleet.py``: a
+    ``ServeDriver``
     on one Montage DAG (paged engine) against its ``EmulatedEngine`` twin,
     then the mix-1/2/4 fleet (1 workflow per tenant) paged, contiguous and
     on its twin, with every request's tokens equal paged and contiguous
@@ -1579,15 +1621,19 @@ def phase_dsp(smi):
     versions). Every launch counter is set to 0 just before each engine
     run and read just after. Returns the runs' summed launch counts."""
     import torch_serve_fleet as tsf
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.models.lm import LM
     from repro_torch.serve.driver import EmulatedEngine
     t0 = time.perf_counter()
-    lm = tsf.build_lm(ARCH, smoke=False, device="cuda")
-    cfg = lm.cfg
-    check(cfg.n_layers == 48 and cfg.d_model == 2048
-          and cfg.n_codebooks == 4 and lm.dtype == torch.bfloat16,
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=DSP_LAYERS)
+    lm = LM(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda"), device="cuda")
+    check(cfg.d_model == 2048 and cfg.n_codebooks == 4
+          and lm.dtype == torch.bfloat16,
           f"dsp: {cfg.name} is not musicgen-large at published widths, bf16")
-    phase("dsp", "serve", f"{cfg.name}: {cfg.n_layers} layers, d_model "
+    phase("dsp", "serve", f"{cfg.name}: {cfg.n_layers} of 48 layers, d_model "
           f"{cfg.d_model}, {cfg.n_codebooks} codebooks, {cfg.dtype}, drawn in "
           f"{time.perf_counter() - t0:.2f} s; engine max_batch "
           f"{tsf.REAL_MAX_BATCH}, max_len {tsf.REAL_MAX_LEN}")
@@ -2546,6 +2592,429 @@ def phase_elastic(smi):
           f"s; {smi}")
 
 
+# -------------------------------------------------------------------- dp
+def dp_run(cfg, seq, batch, **over):
+    """A RunConfig of the dp phase: ``cfg`` at ``seq`` x ``batch``."""
+    from repro_torch.configs import ParallelConfig, RunConfig, ShapeConfig
+    return RunConfig(model=cfg, shape=ShapeConfig("dp", "train", seq, batch),
+                     parallel=ParallelConfig(**over.pop("parallel", {})),
+                     **over)
+
+
+def dp_uneven_batch(rcfg):
+    """Step 0's synthetic batch, its first row's mask cut to the first
+    quarter of the positions: the ranks' rows hold different token
+    counts."""
+    from repro_torch.data.synthetic import synthetic_batches
+    batch = synthetic_batches(rcfg, "cuda")(0)
+    batch["mask"][0, batch["mask"].shape[1] // 4:] = 0
+    return batch
+
+
+@contextlib.contextmanager
+def captured_grads(into):
+    """Record the gradients ``AdamW.apply`` is given (fp32 CPU copies,
+    by path) into ``into``: under a mesh, the ones summed over the
+    ranks."""
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.train import optimizer
+    orig = optimizer.AdamW.apply
+
+    def apply(self, state, grads, zero=None):
+        into.update({p: g.detach().float().cpu()
+                     for p, g in tree_leaves(grads)})
+        return orig(self, state, grads, zero)
+
+    optimizer.AdamW.apply = apply
+    try:
+        yield into
+    finally:
+        optimizer.AdamW.apply = orig
+
+
+@contextlib.contextmanager
+def counted_drops(into):
+    """Add to ``into["drops"]`` the assignments each MoE layer's training
+    route drops (``moe.slots``; a layer under remat counts twice)."""
+    from repro_torch.models import moe
+    orig = moe.slots
+
+    def slots(ids, cfg, data=None):
+        slot, kept, C = orig(ids, cfg, data)
+        into["drops"] = into.get("drops", 0) + int((~kept).sum())
+        return slot, kept, C
+
+    moe.slots = slots
+    try:
+        yield into
+    finally:
+        moe.slots = orig
+
+
+def dp_step(rcfg, batch, mesh=None, seed=7):
+    """One train step of ``rcfg`` from a fresh init of ``seed`` on the card,
+    as one rank of ``mesh`` (None: alone). Returns (metrics as floats,
+    updated params as fp32 CPU copies, the gradients apply was given,
+    moment bytes this rank allocated)."""
+    from repro_torch.bridge import init_params
+    from repro_torch.models.lm import LM, tree_leaves
+    from repro_torch.train.train_step import build_train_step
+    cfg = rcfg.model
+    lm = LM(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), "cuda"), device="cuda")
+    step_fn, opt = build_train_step(lm, rcfg, mesh)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    state = opt.init(lm.params, step_fn.zero)
+    moment_bytes = torch.cuda.memory_allocated() - before
+    grads = {}
+    with captured_grads(grads):
+        state, met = step_fn(state, batch)
+    params = {p: t.detach().float().cpu() for p, t in tree_leaves(lm.params)}
+    return ({k: float(v) for k, v in met.items()}, params, grads,
+            moment_bytes)
+
+
+def dp_step_times(rcfg, mesh=None, steps=DP_TIMED_STEPS):
+    """Seconds of each of ``steps`` bf16 steps after one warm-up step, and
+    (under ``mesh``) the seconds each step spends in its gradient
+    reduction (``train_step.reduce_grads``) and in ``AdamW.apply``'s
+    ZeRO-1 all-gathers of the updated slices (``optimizer.all_gather``,
+    summed over the leaves), each call device-synced on both sides."""
+    from repro_torch.bridge import init_params
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.models.lm import LM
+    from repro_torch.train import optimizer
+    from repro_torch.train import train_step as ts
+    cfg = rcfg.model
+    lm = LM(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda"), device="cuda")
+    step_fn, opt = ts.build_train_step(lm, rcfg, mesh)
+    state = opt.init(lm.params, step_fn.zero)
+    batches = synthetic_batches(rcfg, "cuda")
+    reduce, gather = ts.reduce_grads, optimizer.all_gather
+    spent = {"reduce": [], "gather": []}
+
+    def timed(fn, key):
+        def call(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            spent[key][-1] += time.perf_counter() - t0
+            return out
+        return call
+
+    ts.reduce_grads = timed(reduce, "reduce")
+    optimizer.all_gather = timed(gather, "gather")
+    times = []
+    try:
+        for step in range(steps + 1):
+            batch = batches(step)
+            for key in spent:
+                spent[key].append(0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        ts.reduce_grads, optimizer.all_gather = reduce, gather
+    return times[1:], spent["reduce"][1:], spent["gather"][1:]
+
+
+def dp_resume(rcfg, work, mesh):
+    """(e2) on one rank of the world: ``train_loop(mesh=)`` uninterrupted
+    and with a preemption before step 6, then the world's loss at step
+    DP_STEPS from the uninterrupted run's last checkpoint."""
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.train.loop import _start, train_loop
+    ref = train_loop(rcfg, ckpt_dir=os.path.join(work, "ref"),
+                     num_steps=DP_STEPS, ckpt_every=4, mesh=mesh)
+    pre = train_loop(rcfg, ckpt_dir=os.path.join(work, "pre"),
+                     num_steps=DP_STEPS, ckpt_every=4, fail_at={6: True},
+                     mesh=mesh)
+    state, start, step_fn = _start(rcfg, os.path.join(work, "ref"),
+                                   mesh.device, mesh)
+    _, met = step_fn(state, synthetic_batches(rcfg, mesh=mesh)(start))
+    return {"ref": ref.losses, "pre": pre.losses, "restarts": pre.restarts,
+            "next": float(met["loss"]), "start": start}
+
+
+def dp_against_one(one, world, kind):
+    """The world's step (metrics, params, gradients) against one rank's:
+    loss, every gradient leaf (``grad_errors``) and every updated param
+    (``param_errors``), as numbers."""
+    lw, lo = world[0]["loss"], one[0]["loss"]
+    g_abs, g_ratio, g_leaf, _ = grad_errors(world[2], one[2], kind)
+    p_ratio, p_leaf, widened = param_errors(world[1], one[1], one[2],
+                                            one[0]["lr"], kind)
+    return {"loss": lw, "loss_one": lo, "loss_err": abs(lw - lo) / abs(lo),
+            "g_abs": g_abs, "g_ratio": g_ratio, "g_leaf": g_leaf,
+            "p_ratio": p_ratio, "p_leaf": p_leaf, "widened": widened,
+            "lr": one[0]["lr"], "leaves": len(one[2])}
+
+
+def _dp_rank(rank, mesh, work):
+    """One rank of the dp phase (``launch.world.spawn_world``'s target):
+    (e1) with its TF32 control, the timed steps, (e2) and (e3); every
+    launch counter set to 0 just before and read just after. Rank 0 also
+    takes (e1)'s and (e3)'s one-rank steps, alone on the card before the
+    world's, and holds the world against them here: only numbers go
+    back to the parent."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.train.optimizer import Zero1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launch_counts()
+    out = {"backend": dist.get_backend(), "device": str(mesh.device),
+           "coords": mesh.coords}
+    e1 = dp_e1_run()
+    one = dp_step(e1, dp_uneven_batch(e1)) if rank == 0 else None
+    free_device_memory()
+    world = dp_step(e1, dp_uneven_batch(e1), mesh)
+    zero = Zero1(e1.model, mesh)
+    out["e1"] = {"metrics": world[0], "moment_bytes": world[3],
+                 "counted": sum(2 * 2 * math.prod(zero.local(p, t).shape)
+                                for p, t in world[1].items())}
+    if rank == 0:
+        out["e1"].update(dp_against_one(one, world, "dense"),
+                         one_moment_bytes=one[3])
+    del world
+    free_device_memory()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tgrads = dp_step(e1, dp_uneven_batch(e1), mesh)[2]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if rank == 0:
+        out["tf32"] = grad_errors(tgrads, one[2], "dense")[:3]
+    del tgrads, one
+    free_device_memory()
+    out["times"], out["reduce"], out["gather"] = dp_step_times(dp_e2_run(),
+                                                               mesh)
+    free_device_memory()
+    out["e2"] = dp_resume(dp_e2_run(), work, mesh)
+    free_device_memory()
+    e3 = dp_e3_run()
+    drops = {}
+    if rank == 0:
+        with counted_drops(drops):
+            one = dp_step(e3, dp_uneven_batch(e3))
+        out["e3_one_drops"] = drops.pop("drops", 0)
+    with counted_drops(drops):
+        world = dp_step(e3, dp_uneven_batch(e3), mesh)
+    out["e3"] = {"metrics": world[0], "drops": drops.get("drops", 0)}
+    if rank == 0:
+        # jamba's 14 Mamba2 layers of 16 carry a changed sum order deeper
+        # than (e1)'s 2 dense layers: TRAIN_ATOL["dp jamba"]
+        out["e3"].update(dp_against_one(one, world, "dp jamba"))
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def dp_e1_run():
+    return dp_run(musicgen_cut("float32"), 512, DP_WORLD)
+
+
+def dp_e2_run():
+    return dp_run(musicgen_cut("bfloat16"), 512, DP_WORLD,
+                  learning_rate=3e-3, warmup_steps=2, total_steps=DP_STEPS)
+
+
+def dp_e3_run():
+    from repro_torch.configs import get_smoke_config
+    jamba = dataclasses.replace(get_smoke_config("jamba-1.5-large-398b"),
+                                dtype="float32",
+                                capacity_factor=DP_CAPACITY_FACTOR)
+    return dp_run(jamba, 64, DP_WORLD,
+                  parallel=dict(attn_q_chunk=32, attn_kv_chunk=32))
+
+
+def param_errors(world, one, grads, lr, kind):
+    """(worst err / bound, its leaf, entries whose bound was widened) of
+    the world's updated params against one rank's. Each entry's bound is
+    the gradient bound's form (TRAIN_RTOL x |p| + TRAIN_ATOL x max(1,
+    leaf max)); where one rank's gradient lies within its own bound of 0
+    its sign, and so the sign of AdamW's first update (at most lr in
+    size), is not fixed by the gradient check, and the bound there is 2 x
+    lr. A gradient of exactly 0 (an embedding row no token reads) is 0 on
+    both sides and keeps the tight bound."""
+    worst, leaf, widened = 0.0, "", 0
+    for path, ref in one.items():
+        g = grads[path]
+        gbound = TRAIN_RTOL * g.abs() + TRAIN_ATOL[kind] * max(
+            1.0, g.abs().max().item())
+        free = (g != 0) & (g.abs() <= gbound)
+        bound = TRAIN_RTOL * ref.abs() + TRAIN_ATOL[kind] * max(
+            1.0, ref.abs().max().item())
+        bound = torch.where(free, torch.clamp(bound, min=2 * lr), bound)
+        widened += int(free.sum())
+        ratio = ((world[path] - ref).abs() / bound).max().item()
+        if ratio > worst:
+            worst, leaf = ratio, path
+    return worst, leaf, widened
+
+
+def zero_bytes_full_depth():
+    """(whole, a rank's) bytes of musicgen-large's bf16 moments at full
+    depth under ZeRO-1 at data 2, counted from ``meta_params`` on a
+    shape-only mesh."""
+    from repro_torch.bridge import meta_params
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.train.optimizer import Zero1
+    cfg = get_config(ARCH)
+    mesh = SimpleNamespace(axis_names=("data", "model"),
+                           shape={"data": DP_WORLD, "model": 1},
+                           coords={"data": 0, "model": 0})
+    zero = Zero1(cfg, mesh)
+    whole = rank = 0
+    for path, t in tree_leaves(meta_params(cfg)):
+        whole += 2 * 2 * t.numel()
+        rank += 2 * 2 * math.prod(zero.local(path, t).shape)
+    return whole, rank
+
+
+def phase_dp(smi):
+    """Data-parallel training (``train.train_step`` under a mesh) on a
+    world of DP_WORLD gloo ranks on the card against one rank: (e1)-(e3)
+    of the module docstring. Every launch counter is set to 0 just before
+    and read just after, here and in every rank: the training route
+    reaches no kernel."""
+    import shutil
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.world import spawn_world
+    from repro_torch.train.loop import _start
+    check(not torch.backends.cuda.matmul.allow_tf32, "dp: TF32 is on")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    cfg = dp_e1_run().model
+    phase("dp", "setup", f"{cfg.name}: {cfg.n_layers} of 48 layers, d_model "
+          f"{cfg.d_model}, {cfg.param_count() / 1e6:.1f} M params; a world "
+          f"of {DP_WORLD} ranks on the card (launch.world.spawn_world), "
+          f"global batch {DP_WORLD} at seq 512, one row a rank")
+    one_times = dp_step_times(dp_e2_run())[0]
+    free_device_memory()
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        t1 = time.perf_counter()
+        ranks = spawn_world(DP_WORLD, _dp_rank, work,
+                            devices=["cuda:0"] * DP_WORLD)
+        world_s = time.perf_counter() - t1
+        r0 = ranks[0]
+        for r in ranks:
+            check(r["e1"]["metrics"] == r0["e1"]["metrics"],
+                  f"dp e1: ranks' metrics differ: {r['e1']['metrics']} vs "
+                  f"{r0['e1']['metrics']}")
+        # (e1)
+        e1 = r0["e1"]
+        check(math.isfinite(e1["loss"]) and e1["loss_err"] <= TRAIN_LOSS_RTOL,
+              f"dp e1: loss {DP_WORLD} ranks {e1['loss']!r} vs one "
+              f"{e1['loss_one']!r}, rel err {e1['loss_err']:.3e} > "
+              f"{TRAIN_LOSS_RTOL}")
+        check(e1["g_ratio"] <= 1.0, f"dp e1: gradient {e1['g_leaf']} off by "
+              f"{e1['g_ratio']:.2f} x its bound")
+        check(e1["p_ratio"] <= 1.0, f"dp e1: updated param {e1['p_leaf']} "
+              f"off by {e1['p_ratio']:.2f} x its bound")
+        mw = [r["e1"]["moment_bytes"] for r in ranks]
+        phase("dp", "e1", f"fp32, the ranks' rows hold {512 // 4} and 512 "
+              f"tokens of the mask: loss {DP_WORLD} ranks {e1['loss']:.6f} vs "
+              f"one {e1['loss_one']:.6f} (rel err {e1['loss_err']:.3e}, tol "
+              f"{TRAIN_LOSS_RTOL}); {e1['leaves']} gradient leaves: worst abs "
+              f"err {e1['g_abs']:.3e}, worst err / bound {e1['g_ratio']:.3f} "
+              f"({e1['g_leaf']}); updated params: worst err / bound "
+              f"{e1['p_ratio']:.3f} ({e1['p_leaf']}; {e1['widened']} entries "
+              f"whose one-rank gradient lies within its bound held to 2 x lr "
+              f"= {2 * e1['lr']:.3e}); ZeRO-1 moments a rank {mw} B measured "
+              f"(memory_allocated), {e1['counted']} B counted, whole "
+              f"{e1['one_moment_bytes']} B on one rank; {smi}")
+        t_abs, t_ratio, t_leaf = r0["tf32"]
+        phase("dp", "e1", f"control, TF32 products in the world: worst abs "
+              f"err {t_abs:.3e}, worst err / bound {t_ratio:.3f} ({t_leaf}),"
+              f" must exceed {TF32_CONTROL_MIN}")
+        check(t_ratio > TF32_CONTROL_MIN, f"dp e1: with TF32 on, the world's "
+              f"gradients land at {t_ratio:.3f} of the bound: the bound "
+              "cannot tell TF32 from fp32")
+        for r in ranks:
+            med = statistics.median(r["times"])
+            red = statistics.median(r["reduce"])
+            gat = statistics.median(r["gather"])
+            phase("dp", "time", f"rank {r['coords']} ({r['backend']}, "
+                  f"{r['device']}): bf16 step median {med:.4f} s (of "
+                  f"{', '.join(f'{x:.4f}' for x in r['times'])}), gradient "
+                  f"reduction median {red:.4f} s = {red / med:.1%} of the "
+                  f"step, ZeRO-1 all-gathers median {gat:.4f} s = "
+                  f"{gat / med:.1%}; one rank at the same global batch "
+                  f"{statistics.median(one_times):.4f} s (of "
+                  f"{', '.join(f'{x:.4f}' for x in one_times)}); {smi}")
+        whole, per_rank = zero_bytes_full_depth()
+        phase("dp", "zero", f"musicgen-large at full depth: bf16 m and v "
+              f"{whole / 1e9:.3f} GB whole, {per_rank / 1e9:.3f} GB a rank "
+              f"under ZeRO-1 at data {DP_WORLD} (counted from meta_params)")
+        # (e2)
+        e2 = r0["e2"]
+        for r in ranks:
+            check(r["e2"] == e2, "dp e2: the ranks' losses differ")
+        check(e2["restarts"] == 1 and len(e2["pre"]) == DP_STEPS + 2,
+              f"dp e2: {e2['restarts']} restarts, {len(e2['pre'])} losses")
+        check(e2["pre"][:6] == e2["ref"][:6]
+              and e2["pre"][6:] == e2["ref"][4:],
+              f"dp e2: losses differ from the uninterrupted world's: "
+              f"{e2['pre']} vs {e2['ref']}")
+        e2r = dp_e2_run()
+        state, start, step_fn = _start(e2r, os.path.join(work, "ref"), "cuda")
+        _, met = step_fn(state, synthetic_batches(e2r, "cuda")(start))
+        one_next = float(met["loss"])
+        del state, step_fn
+        next_err = abs(one_next - e2["next"]) / abs(e2["next"])
+        check(start == e2["start"] == DP_STEPS and next_err <= DP_NEXT_RTOL,
+              f"dp e2: step {start}'s loss on one rank from the world's "
+              f"checkpoint {one_next!r} vs the world's {e2['next']!r}, rel "
+              f"err {next_err:.3e} > {DP_NEXT_RTOL}")
+        phase("dp", "e2", f"bf16 train_loop(mesh=): {DP_STEPS} steps with "
+              f"checkpoints every 4; with a preemption before step 6, "
+              f"{e2['restarts']} restart and {len(e2['pre'])} losses equal to "
+              f"the uninterrupted world's bit for bit; step {start} from its "
+              f"last checkpoint on one rank {one_next:.6f} vs the world "
+              f"{e2['next']:.6f} (rel err {next_err:.3e}, tol {DP_NEXT_RTOL});"
+              f" losses " + ", ".join(f"{x:.4f}" for x in e2["ref"])
+              + f"; {smi}")
+        # (e3)
+        e3 = r0["e3"]
+        one_drops = r0["e3_one_drops"]
+        world_drops = sum(r["e3"]["drops"] for r in ranks)
+        check(one_drops > 0, f"dp e3: capacity factor {DP_CAPACITY_FACTOR} "
+              "drops no assignment")
+        check(e3["loss_err"] <= TRAIN_LOSS_RTOL, f"dp e3: loss "
+              f"{e3['loss']!r} vs one {e3['loss_one']!r}, rel err "
+              f"{e3['loss_err']:.3e}")
+        check(e3["g_ratio"] <= 1.0, f"dp e3: gradient {e3['g_leaf']} off by "
+              f"{e3['g_ratio']:.2f} x its bound")
+        phase("dp", "e3", f"{dp_e3_run().model.name}, fp32, capacity factor "
+              f"{DP_CAPACITY_FACTOR}: {one_drops} assignments dropped on one "
+              f"rank, {world_drops} over the world's ranks; loss "
+              f"{e3['loss']:.6f} vs {e3['loss_one']:.6f} (rel err "
+              f"{e3['loss_err']:.3e}); {e3['leaves']} gradient leaves, worst "
+              f"abs err {e3['g_abs']:.3e}, worst err / bound "
+              f"{e3['g_ratio']:.3f} ({e3['g_leaf']}; rtol {TRAIN_RTOL}, atol "
+              f"{TRAIN_ATOL['dp jamba']} x max(1, leaf max))")
+        check(world_drops == one_drops, f"dp e3: the world dropped "
+              f"{world_drops} assignments, one rank {one_drops}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    counts = ops.launch_counts()
+    for r in ranks:
+        check(not any(r["launches"].values()), f"dp: rank {r['coords']} "
+              f"launched kernels {r['launches']}")
+    check(not any(counts.values()), f"dp: kernel launches {counts}: the "
+          "training route must reach no kernel")
+    phase("dp", "done", f"launches {counts} here and "
+          f"{[r['launches'] for r in ranks]} in the ranks; world {world_s:.1f}"
+          f" s; phase {time.perf_counter() - t0:.1f} s; {smi}")
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -2593,6 +3062,8 @@ def main():
     phase_train(smi)
     free_device_memory()
     phase_elastic(smi)
+    free_device_memory()
+    phase_dp(smi)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ Eight slots of one device model an 8-accelerator TRE allocation. Two
 training jobs arrive; the DSP scan grows the allocation, the controller
 grows a running job into spare slots (checkpoint -> re-enter -> resume,
 beyond-paper elastic growth), and an injected preemption is absorbed by
-restart-from-checkpoint. The port trains on one card, so a grown job runs
-the same global batch on the same device.
+restart-from-checkpoint. The eight slots name one device, so a grown job
+runs the same global batch on it, in this process; a pool of distinct
+devices would run a grown job's segments as a data-parallel world.
 
   PYTHONPATH=src python examples/elastic_train_torch.py [--device cpu]
 """

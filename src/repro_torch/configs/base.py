@@ -5,9 +5,10 @@
 package's (a test pins the equality), so a config names the same model and
 run in both packages. Of ``ParallelConfig``, serving across ranks
 (``models.lm.Runtime``) reads ``decode_kv_shard`` and
-``attn_seq_parallel``; training runs on one card and reads ``remat``,
-``microbatches``, the attention chunks and ``attn_impl``, and refuses
-``grad_compress_pod``.
+``attn_seq_parallel``; training reads ``remat``, ``microbatches``, the
+attention chunks and ``attn_impl``, and under a data mesh ``zero1``,
+``grad_compress_pod`` and ``strategy`` (``train.train_step``, which
+refuses ``fsdp_tp`` there).
 """
 from __future__ import annotations
 

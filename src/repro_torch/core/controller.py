@@ -26,21 +26,22 @@ strictly before the boundary they precede; scans come last):
      checkpoints, re-enters on the job's device and resumes; injected
      preemptions are absorbed by restart-from-latest-checkpoint.
 
-The port trains on one card. Its pool is a list of ``torch.device``; a
-pool that names one card n times is n slots of that card, as the
-reference's placeholder host devices are n slots of one host. The
-reference's data axis places a batch's rows and does not change what a
-step computes, so a grown job's segment runs the same global batch on the
-same card. A job across distinct cards needs data parallelism over
-``torch.distributed``: the port's ``parallel/`` serves across ranks but
-does not train across them yet, so ``_mesh_for`` raises for it.
+The port's pool is a list of ``torch.device``. A pool that names one
+card n times is n slots of that card, as the reference's placeholder
+host devices are n slots of one host: the reference's data axis places a
+batch's rows and does not change what a step computes, so a grown job's
+segment runs the same global batch on the same card, in this process. A
+job whose slots name distinct devices (cards, or ``cpu:0``...``cpu:3``)
+runs each segment as a world of one rank a slot
+(``launch.world.spawn_world``): every rank restores the job's newest
+checkpoint, runs the tick's steps data-parallel on its rows
+(``train.train_step``) and joins the save, and the losses come back to
+this process.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-
-import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.lifecycle import LifecycleService
@@ -48,6 +49,7 @@ from repro_torch.core.policy import MgmtPolicy
 from repro_torch.core.provision import ProvisionService
 from repro_torch.core.tre import HTCRuntimeEnv, TickClock
 from repro_torch.data.synthetic import synthetic_batches
+from repro_torch.launch.world import rank_device, spawn_world
 from repro_torch.models.lm import resolve_device
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.loop import _start
@@ -134,28 +136,61 @@ class ElasticController:
         task.alloc = task.nodes
         self.running.append(task)
 
-    def _mesh_for(self, n: int) -> torch.device:
-        """The device a job of ``n`` slots runs on."""
+    def _mesh_for(self, n: int):
+        """Where a job of ``n`` slots runs: one device (a pool that names
+        it n times is n slots of it, and the job runs in this process), or
+        the list of its n devices when they are distinct, on whose world
+        of n ranks (``launch.world.spawn_world``) its segment runs data-
+        parallel, as the reference's ``data`` mesh of n devices does. A
+        CPU device of any index is the CPU (tensors report plain
+        ``cpu``)."""
         # guarded raise, not assert: a job wider than the device pool
         # must fail loudly, under ``python -O`` too
         if n > len(self.devices):
             raise RuntimeError(
                 f"mesh wider than device pool: {n} > {len(self.devices)}")
         first = self.devices[0]
-        if any(d != first for d in self.devices[:n]):
-            raise NotImplementedError(
-                f"a job across distinct devices {self.devices[:n]} needs "
-                "data-parallel training over torch.distributed, which the "
-                "port's parallel/ does not have yet (it serves across ranks;"
-                " ROADMAP queue 3); the port trains on one card")
-        return first
+        if all(d == first for d in self.devices[:n]):
+            return rank_device(first)
+        return list(self.devices[:n])
+
+    @staticmethod
+    def _segment_rank(rank, mesh, rcfg, ckpt_dir, steps, num_steps, fail):
+        """One rank of a segment's world: restore the job's newest
+        checkpoint (or init from its seed), run up to ``steps`` steps on
+        the rank's rows and join the save. Returns (losses, the step
+        saved, or None when preempted)."""
+        state, start, step_fn = _start(rcfg, ckpt_dir, mesh.device, mesh)
+        batch_fn = synthetic_batches(rcfg, mesh.device, mesh)
+        end = min(start + steps, num_steps)
+        losses = []
+        for step in range(start, end):
+            if fail and step == start + 1:
+                return losses, None
+            state, metrics = step_fn(state, batch_fn(step))
+            losses.append(float(metrics["loss"]))
+        ckpt.save(ckpt_dir, end, state, mesh=mesh, zero=step_fn.zero)
+        return losses, end
 
     # ------------------------------------------------------------- a tick
     def _run_segment(self, task: TrainTask, fail: bool = False) -> None:
-        """Run ``steps_per_tick`` steps of a task on its device."""
-        device = self._mesh_for(task.alloc)
-        state, start, step_fn = _start(task.rcfg, task.ckpt_dir, device)
-        batch_fn = synthetic_batches(task.rcfg, device)
+        """Run ``steps_per_tick`` steps of a task on its device, or on its
+        devices' world."""
+        place = self._mesh_for(task.alloc)
+        if isinstance(place, list):
+            results = spawn_world(
+                len(place), ElasticController._segment_rank, task.rcfg,
+                task.ckpt_dir, self.steps_per_tick, task.num_steps, fail,
+                devices=place)
+            losses, end = results[0]
+            task.losses.extend(losses)
+            if end is None:
+                task.restarts += 1
+            else:
+                task.steps_done = end
+            return
+        state, start, step_fn = _start(task.rcfg, task.ckpt_dir, place)
+        batch_fn = synthetic_batches(task.rcfg, place)
         end = min(start + self.steps_per_tick, task.num_steps)
         # the state, LM and step are this frame's alone (no reference
         # cycle holds them), so returning frees them: the next job's

@@ -30,11 +30,15 @@ def apply_delay_pattern(tokens: np.ndarray, pad: int = 0) -> np.ndarray:
     return out
 
 
-def synthetic_batches(rcfg, device=None):
+def synthetic_batches(rcfg, device=None, mesh=None):
     """Returns batch_fn(step) -> {"tokens", "targets" (B, S[, ncb]) int32,
     "mask" (B, S) fp32[, "patches" (B, Np, d)]} on ``device`` (the card by
-    default), S the text length (``seq_len - n_patches`` with the vision
-    stub)."""
+    default; under ``mesh``, its rank's device), S the text length
+    (``seq_len - n_patches`` with the vision stub). The batch is the
+    global one on every rank, as the reference's is: a data-parallel step
+    takes its rows (``train.train_step``)."""
+    if device is None and mesh is not None:
+        device = mesh.device
     device = resolve_device(device)
     cfg = rcfg.model
     shape = rcfg.shape

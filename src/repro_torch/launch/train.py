@@ -1,11 +1,15 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>``.
 
 Runs the fault-tolerant loop (``train.loop``) on the card, or on the CPU
-with ``--device cpu``, with the flags of ``repro.launch.train`` but its
-mesh flags (``--data``, ``--model-axis``): the port trains on one card.
-With ``--smoke`` (the default) the reduced config trains at sequence 64,
-batch 8; ``--full`` takes the published config at ``--shape``. A run
-resumes from the newest checkpoint under ``--ckpt-dir``.
+with ``--device cpu``, with the flags of ``repro.launch.train``. ``--data
+N`` trains data-parallel on a world of N ranks (``launch.world.
+spawn_world``: gloo on the CPU or when ranks share a card, NCCL with a
+card a rank); ``--data 0``, the default, means one rank per local card,
+or 1 on the CPU. ``--model-axis`` other than 1 raises: training under
+the ``model`` axis is ROADMAP queue 3. With ``--smoke`` (the default) the
+reduced config trains at sequence 64, batch 8; ``--full`` takes the
+published config at ``--shape``. A run resumes from the newest
+checkpoint under ``--ckpt-dir``.
 """
 from __future__ import annotations
 
@@ -13,11 +17,20 @@ import argparse
 import os
 import tempfile
 
+import torch
+
 from repro_torch.configs import (
     ARCHS, SHAPES, ParallelConfig, RunConfig, ShapeConfig, get_config,
     get_smoke_config)
+from repro_torch.launch.world import spawn_world
 from repro_torch.models.lm import resolve_device
 from repro_torch.train.loop import train_loop
+
+
+def _rank(rank, mesh, rcfg, args):
+    """One rank of ``--data N``: the loop on the rank's rows."""
+    return train_loop(rcfg, ckpt_dir=args.ckpt_dir, num_steps=args.steps,
+                      ckpt_every=args.ckpt_every, mesh=mesh)
 
 
 def main(argv=None):
@@ -32,8 +45,16 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs on the CPU")
+    ap.add_argument("--data", type=int, default=0,
+                    help="data-axis size (0 = one rank per local card, 1 on "
+                         "the CPU)")
+    ap.add_argument("--model-axis", type=int, default=1)
     args = ap.parse_args(argv)
 
+    if args.model_axis != 1:
+        raise ValueError(f"--model-axis {args.model_axis}: the port trains "
+                         "data-parallel only; training under the model axis "
+                         "is ROADMAP queue 3")
     device = resolve_device(args.device)
     if args.smoke:
         cfg = get_smoke_config(args.arch)
@@ -45,10 +66,17 @@ def main(argv=None):
         parallel = ParallelConfig()
     rcfg = RunConfig(model=cfg, shape=shape, parallel=parallel,
                      total_steps=args.steps)
+    data = args.data or (torch.cuda.device_count() if device.type == "cuda"
+                         else 1)
     print(f"arch={args.arch} params={cfg.param_count() / 1e6:.1f}M "
-          f"device={device}")
-    report = train_loop(rcfg, ckpt_dir=args.ckpt_dir, num_steps=args.steps,
-                        ckpt_every=args.ckpt_every, device=device)
+          f"device={device} data={data}")
+    if data > 1:
+        devices = ([str(device)] * data if device.type == "cpu" else None)
+        report = spawn_world(data, _rank, rcfg, args, devices=devices)[0]
+    else:
+        report = train_loop(rcfg, ckpt_dir=args.ckpt_dir,
+                            num_steps=args.steps,
+                            ckpt_every=args.ckpt_every, device=device)
     trend = (f"loss {report.losses[0]:.3f} -> {report.final_loss:.3f}"
              if report.losses else f"nothing to run past step {args.steps}")
     print(f"steps={report.steps_run} restarts={report.restarts} {trend}")

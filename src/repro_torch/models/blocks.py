@@ -29,6 +29,8 @@ with no cache, through plain tensor ops only (``chunked_attention``,
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import ops
@@ -155,7 +157,7 @@ def block_apply(p, cfg, x, positions, i: int, *, rt=None, cache=None,
     return x, new_cache
 
 
-def _ffn(p, cfg, x, i: int, moe_fn, tp=WHOLE):
+def _ffn(p, cfg, x, i: int, moe_fn, tp=WHOLE, data=None):
     """The block's second half: the MoE layer through ``moe_fn`` (with
     the dense residual or shared MLP where the config has one), the dense
     MLP, or nothing. Returns (x, aux losses: the router's, or {}).
@@ -168,7 +170,7 @@ def _ffn(p, cfg, x, i: int, moe_fn, tp=WHOLE):
     aux = {}
     if cfg.is_moe_layer(i):
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        ids, wts, aux = route(p["moe"], cfg, h)
+        ids, wts, aux = route(p["moe"], cfg, h, data)
         widths = {}
         if cfg.dense_residual and cfg.d_ff > 0:
             widths["dense_mlp"] = cfg.d_ff
@@ -192,11 +194,13 @@ def _ffn(p, cfg, x, i: int, moe_fn, tp=WHOLE):
     return x, aux
 
 
-def block_train(p, cfg, parallel, x, positions, i: int):
+def block_train(p, cfg, parallel, x, positions, i: int, data=None):
     """The training route of block ``i`` over whole sequences, no cache:
     attention through ``chunked_attention`` with the KV heads repeated
     (chunks and ``impl`` from ``parallel``), Mamba2 through
-    ``ssd_chunked``, MoE through ``moe_train``. Returns (x, aux losses)."""
+    ``ssd_chunked``, MoE through ``moe_train``. Returns (x, aux losses).
+    ``data``: the group of the ranks that hold the batch's other rows, or
+    None (``models.lm.LM.loss``); only the MoE layer reads it."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if cfg.block_kind(i) == "attn":
         B, S, _ = h.shape
@@ -208,4 +212,5 @@ def block_train(p, cfg, parallel, x, positions, i: int):
         out = o.reshape(B, S, cfg.q_dim) @ p["attn"]["wo"]
     else:
         out, _ = mamba_apply(p["mamba"], cfg, h, train=True)
-    return _ffn(p, cfg, x + out, i, moe_train)
+    return _ffn(p, cfg, x + out, i, functools.partial(moe_train, data=data),
+                data=data)

@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.models.blocks import DECODE_BLOCK_S, block_apply, block_train
 from repro_torch.models.layers import rmsnorm
+from repro_torch.parallel.collectives import all_reduce
 from repro_torch.parallel.sharding import AXIS_MODEL
 from repro_torch.parallel.tensor import (
     WHOLE, TensorParallel, decode_kv_shard, tensor_plan)
@@ -243,15 +244,17 @@ class LM(nn.Module):
         return tp.gather(out, -1) if tp.vocab else out
 
     # ------------------------------------------------------------- train
-    def backbone(self, x, positions, parallel: ParallelConfig):
+    def backbone(self, x, positions, parallel: ParallelConfig, data=None):
         """Training forward of (B, S, d) through every layer: returns (x,
         {"moe_lb_loss", "moe_z_loss"} fp32 sums over the layers). The
-        stacked leaves are sliced inside the graph on every call."""
+        stacked leaves are sliced inside the graph on every call.
+        ``data``: as in ``loss``."""
         cfg = self.cfg
 
         def repeat(x, lb, z, layer):
             for i in range(self.period):
-                x, aux = block_train(layer[i], cfg, parallel, x, positions, i)
+                x, aux = block_train(layer[i], cfg, parallel, x, positions,
+                                     i, data)
                 if aux:
                     lb = lb + aux["moe_lb_loss"]
                     z = z + aux["moe_z_loss"]
@@ -267,19 +270,34 @@ class LM(nn.Module):
                                       for i in range(self.period)])
         return x, {"moe_lb_loss": lb, "moe_z_loss": z}
 
-    def loss(self, batch, parallel: ParallelConfig | None = None):
+    def loss(self, batch, parallel: ParallelConfig | None = None,
+             data=None):
         """batch: tokens, targets (B, S[, ncb]) int, mask (B, S) f32,
         optional patches (B, Np, d), on the LM's device. Returns (loss,
         metrics): loss = CE + 0.01 * load-balance + 1e-3 * router z loss,
         differentiable; metrics ``ce``, ``moe_lb_loss``, ``moe_z_loss`` and
         ``z`` (the mean squared log-normaliser), detached. The CE is the
         masked mean over text positions (the patches' positions dropped),
-        averaged over codebooks for multi-codebook models."""
+        averaged over codebooks for multi-codebook models.
+
+        ``data``: the data context, the process group of the ranks that
+        hold the other rows of the batch (in group-rank order), or None
+        when ``batch`` is the whole batch. Under a group the loss and
+        every metric are this rank's share of the whole batch's, computed
+        over its own rows only: the CE and ``z`` are the local masked sums
+        over the global denominator (the all-reduced ``mask.sum()``), and
+        each MoE layer's aux losses and capacity are the global batch's
+        (``models.moe``). Summed over the group, the shares are the
+        reference's loss and metrics over the global batch, and their
+        gradients, summed, its gradients. Under remat the MoE layers'
+        collectives run again in the backward, on every rank in the same
+        order, and give the same counts."""
         cfg = self.cfg
         x = self.embed(batch)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
-        x, aux = self.backbone(x, positions, parallel or ParallelConfig())
+        x, aux = self.backbone(x, positions, parallel or ParallelConfig(),
+                               data)
         x = rmsnorm(self.params["final_norm"], x, cfg.norm_eps)
         if cfg.vision_stub and "patches" in batch:
             x = x[:, batch["patches"].shape[1]:]  # loss on text positions
@@ -292,7 +310,10 @@ class LM(nn.Module):
         if cfg.n_codebooks > 1:
             ce = ce.mean(dim=-1)
             lse = lse.mean(dim=-1)
-        denom = torch.clamp(mask.sum(), min=1.0)
+        denom = mask.sum()
+        if data is not None:
+            denom = all_reduce(denom.clone(), data)
+        denom = torch.clamp(denom, min=1.0)
         ce_loss = (ce * mask).sum() / denom
         loss = (ce_loss + 0.01 * aux["moe_lb_loss"]
                 + 1e-3 * aux["moe_z_loss"])

@@ -18,7 +18,9 @@ Training runs ``moe_train``: the same routing, capacity and drops, with
 the three expert products as plain batched products (the kernel is
 forward-only) and every gather laid out so that its gradient adds each
 row once or sums in a fixed order: no row's gradient depends on the
-order in which additions land.
+order in which additions land. Under data parallelism (``route`` and
+``slots`` with a ``data`` group) each rank routes its rows, and the aux
+losses, C and the slots are those of the global batch.
 
 The capacity ``C = ceil(T * k / E * capacity_factor)`` counts all ``T =
 B * S`` rows of the call, as the reference does: whether one request's
@@ -31,6 +33,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
@@ -38,12 +41,20 @@ from repro_torch.parallel.collectives import all_gather, all_reduce, batch_rows
 from repro_torch.parallel.sharding import AXIS_MODEL, mesh_axis_size
 
 
-def route(p, cfg, x):
+def route(p, cfg, x, data=None):
     """x: (B, S, d) -> ids (B, S, K) int64, weights (B, S, K) f32, aux.
 
     fp32 router, softmax, top-k and renormalisation. Ties go to the lower
     expert index, as ``jax.lax.top_k`` orders them: a stable descending
     sort keeps equal probabilities in index order.
+
+    ``data``: the process group of the ranks that hold the other rows of
+    the batch (``models.lm.LM.loss``), or None when x is the whole batch.
+    Under a group the aux losses are this rank's share of the whole
+    batch's: ``frac`` comes from the all-reduced (E,) counts, and the
+    mean probability and the router z loss divide the rank's sums by the
+    global ``T``, so the shares add up to the reference's losses over the
+    global batch.
     """
     logits = x.float() @ p["router"]
     probs = torch.softmax(logits, dim=-1)
@@ -52,9 +63,17 @@ def route(p, cfg, x):
     wts = wts / torch.clamp(wts.sum(dim=-1, keepdim=True), min=1e-9)
     # load-balance loss (Switch): E * sum_e mean_prob_e * frac_assign_e
     counts = torch.bincount(ids.reshape(-1), minlength=cfg.n_experts).float()
-    frac = counts / torch.clamp(counts.sum(), min=1.0)
-    lb_loss = cfg.n_experts * torch.sum(probs.mean(dim=(0, 1)) * frac)
-    z_loss = torch.mean(torch.logsumexp(logits, dim=-1).square())
+    lse2 = torch.logsumexp(logits, dim=-1).square()
+    if data is None:
+        frac = counts / torch.clamp(counts.sum(), min=1.0)
+        lb_loss = cfg.n_experts * torch.sum(probs.mean(dim=(0, 1)) * frac)
+        z_loss = torch.mean(lse2)
+    else:
+        counts = all_reduce(counts, data)
+        frac = counts / torch.clamp(counts.sum(), min=1.0)
+        T = x.shape[0] * x.shape[1] * dist.get_world_size(data)
+        lb_loss = cfg.n_experts * torch.sum(probs.sum(dim=(0, 1)) / T * frac)
+        z_loss = lse2.sum() / T
     return ids, wts, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}
 
 
@@ -75,13 +94,9 @@ def dispatch(ids, cfg):
     """
     T = ids.shape[0] * ids.shape[1]
     K, E = cfg.top_k, cfg.n_experts
-    C = capacity(T, cfg)
-    idf = ids.reshape(T * K)
-    onehot = F.one_hot(idf, E)                              # (T*K, E)
-    slot = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(dim=1)
-    kept = slot < C
+    slot, kept, C = slots(ids, cfg)
     tok = torch.full((E * C,), T, dtype=torch.int64, device=ids.device)
-    flat = idf * C + slot
+    flat = ids.reshape(T * K) * C + slot
     tok[flat[kept]] = torch.arange(T * K, device=ids.device)[kept] // K
     return tok.reshape(E, C), slot, kept
 
@@ -176,7 +191,33 @@ def _moe_local(p, cfg, x, ids, wts, lo: int, n_local: int):
     return y.reshape(B, S, d)
 
 
-def moe_train(p, cfg, x, ids, wts):
+def slots(ids, cfg, data=None):
+    """(slot (T*K,) int64, kept (T*K,) bool, C) of the training route:
+    each assignment's position in its expert in token-major, k-minor
+    order, kept below the capacity C.
+
+    Under ``data`` (the group of the ranks that hold the batch's other
+    rows, each a contiguous block in group-rank order) C counts the
+    global ``T``, and each slot adds the count of the same expert among
+    the lower ranks' assignments (an exclusive scan over one all-gather
+    of (E,) counts): the reference's global fill order, drops included.
+    """
+    T = ids.shape[0] * ids.shape[1]
+    E = cfg.n_experts
+    idf = ids.reshape(T * cfg.top_k)
+    onehot = F.one_hot(idf, E)                              # (T*K, E)
+    slot = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(dim=1)
+    if data is None:
+        C = capacity(T, cfg)
+    else:
+        C = capacity(T * dist.get_world_size(data), cfg)
+        every = all_gather(onehot.sum(dim=0)[None], 0, data)   # (n, E)
+        below = every[:dist.get_rank(data)].sum(dim=0)
+        slot = slot + below[idf]
+    return slot, slot < C, C
+
+
+def moe_train(p, cfg, x, ids, wts, data=None):
     """The training route of ``moe_apply``: the same function of x, the
     weights and the gates ``wts``, differentiable in all three.
 
@@ -186,11 +227,14 @@ def moe_train(p, cfg, x, ids, wts):
     its kept outputs (a dropped one, the spare zero row) and adds them in
     expert order. Every gathered row but the spare one has one reader, so
     the gradients of the gathers add each row once.
+
+    ``data``: as in ``slots``. A rank then runs its rows through its
+    slots of the global table; the slots that other ranks fill stay
+    empty here, so the ranks' outputs are the rows of the reference's.
     """
     B, S, d = x.shape
     T, K, E = B * S, cfg.top_k, cfg.n_experts
-    _, slot, kept = dispatch(ids, cfg)
-    C = capacity(T, cfg)
+    slot, kept, C = slots(ids, cfg, data)
     flat = ids.reshape(T * K) * C + slot                  # (T*K,) slot ids
     spare = torch.full_like(flat, E * C)
     at = torch.where(kept, flat, spare)                   # dropped -> spare

@@ -1,4 +1,5 @@
-"""Serving across ranks on ``torch.distributed`` (``repro.parallel``).
+"""Serving and training across ranks on ``torch.distributed``
+(``repro.parallel``).
 
 ``sharding`` holds the logical-axis placement rules, ``tensor`` which
 dense leaves a rank splits over ``model`` under them (heads, MLPs, vocab,
@@ -9,10 +10,10 @@ expert parallelism lives in ``models.moe.moe_apply``. ``check`` holds
 those beside one rank's results for the card tests and the smoke. The
 mesh comes from ``launch.mesh``.
 
-The reference's ``compat.py`` only bridges JAX API versions (and
-``tpu_compiler_params``), so it has no counterpart. Its training half,
-``compression.py`` (int8 cross-pod gradient all-reduce), is not ported
-yet: the port trains on one card.
+``compression`` is the int8 cross-pod gradient exchange of
+data-parallel training (``train.train_step``). The reference's
+``compat.py`` only bridges JAX API versions (and
+``tpu_compiler_params``), so it has no counterpart.
 """
 from repro_torch.parallel.sharding import (  # noqa: F401
     AXIS_DATA,

@@ -83,6 +83,14 @@ def all_gather(t, dim: int, group):
     return torch.cat(parts, dim=dim).to(t.device)
 
 
+def reduce_metrics(loss, metrics, group):
+    """(loss, metrics) summed over ``group`` in one all-reduce of fp32."""
+    names = sorted(metrics)
+    vals = all_reduce(torch.stack([loss.float()] + [
+        metrics[k].float() for k in names]), group)
+    return vals[0], dict(zip(names, vals[1:]))
+
+
 def _rotate(tensors, group):
     """Send each tensor to the next rank of ``group`` and receive the
     previous rank's, in one ``batch_isend_irecv``."""

@@ -13,6 +13,14 @@ other.
 The manifest is packed and read by this module's own msgpack subset (a
 map of str keys to int, str and list of str): the card's environment is
 not known to carry the ``msgpack`` package.
+
+Checkpoints stay sharding-agnostic, as the reference's are: a leaf is
+always saved whole. Under a data mesh (``mesh=``) every rank calls
+``save``: the ZeRO-1 moment slices (``zero=``) are gathered first, rank 0
+writes and makes the one atomic rename, and every rank waits on a
+barrier. On restore every rank reads the whole leaves and keeps its
+slices, so a directory written by a world restores on one device, in the
+JAX package or in a world of another size, and the other way round.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import struct
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.lm import sorted_tree_leaves
 from repro_torch.train.optimizer import TrainState
@@ -186,8 +195,25 @@ def _dtype_name(leaf) -> str:
     return {v: k for k, v in _DTYPES.items()}[leaf.dtype]
 
 
-def save(path: str, step: int, state: TrainState, keep: int = 3) -> str:
-    """Save ``state`` at ``path/step_<step>``; returns the final dir."""
+def save(path: str, step: int, state: TrainState, keep: int = 3, *,
+         mesh=None, zero=None) -> str:
+    """Save ``state`` at ``path/step_<step>``; returns the final dir.
+    Under ``mesh`` every rank calls it (with ``zero``, the
+    ``optimizer.Zero1`` its moments are sliced by, or None) and rank 0
+    writes."""
+    if zero is not None:
+        state = TrainState(state.step, state.params,
+                           zero.gather_tree(state.m),
+                           zero.gather_tree(state.v))
+    final = os.path.join(path, f"step_{step}")
+    if mesh is None or dist.get_rank() == 0:
+        _write(path, step, state, keep)
+    if mesh is not None:
+        dist.barrier()
+    return final
+
+
+def _write(path: str, step: int, state: TrainState, keep: int):
     leaves = state_leaves(state)
     final = os.path.join(path, f"step_{step}")
     tmp = final + ".tmp"
@@ -205,7 +231,6 @@ def save(path: str, step: int, state: TrainState, keep: int = 3) -> str:
         shutil.rmtree(final)
     os.replace(tmp, final)
     _gc(path, keep)
-    return final
 
 
 def _steps(path: str) -> list[int]:
@@ -231,12 +256,13 @@ def latest_step(path: str) -> int | None:
 
 
 def restore(path: str, like: TrainState, step: int | None = None,
-            device=None):
+            device=None, *, zero=None):
     """Restore into the layout of ``like`` (tensors of the right shapes,
     meta tensors will do: their values are not read) and return (state,
     step), the leaves on ``device`` (None: each on its ``like`` leaf's
     device). The leaf count and every shape must match, else ValueError;
-    each leaf takes the dtype the manifest names."""
+    each leaf takes the dtype the manifest names. With ``zero``
+    (``optimizer.Zero1``) the moments are this rank's slices."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -264,7 +290,10 @@ def restore(path: str, like: TrainState, step: int | None = None,
         else:
             t = torch.from_numpy(np.array(arr)).to(_DTYPES[dt])
         out[name] = t.to(lk.device if device is None else device)
-    return _state_from_names(like, out), step
+    state = _state_from_names(like, out)
+    if zero is not None:
+        state.m, state.v = zero.slice_tree(state.m), zero.slice_tree(state.v)
+    return state, step
 
 
 def _rebuild(tree, prefix, flat):

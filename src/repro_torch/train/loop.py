@@ -2,8 +2,16 @@
 
 A job that (a) checkpoints on an interval, (b) survives injected failures
 and preemptions by resuming from its newest checkpoint, and (c) honours
-resize requests by checkpointing and re-entering. The port trains on one
-card, so a resize keeps that card: its value must be None.
+resize requests by checkpointing and re-entering.
+
+With ``mesh`` the loop runs as one rank of the caller's world (every
+rank calls it with the same arguments; ``launch.world.spawn_world``
+starts such a world): the step is data-parallel
+(``train.train_step``), and checkpoints are saved whole by rank 0
+(``train.checkpoint``). A resize re-enters on the loop's own devices:
+its value is None or a mesh equal to the loop's. A resize to another
+data extent needs a world of another size, which the controller's
+segments start (``core.controller``); the loop does not.
 """
 from __future__ import annotations
 
@@ -17,7 +25,8 @@ from repro_torch.data.synthetic import synthetic_batches
 from repro_torch.models.lm import DTYPES, LM, resolve_device, tree_map
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import TrainState
-from repro_torch.train.train_step import build_train_step, make_optimizer
+from repro_torch.train.train_step import (
+    build_train_step, make_optimizer, zero_for)
 
 
 class Preemption(Exception):
@@ -44,25 +53,33 @@ def train_loop(
     resize_at: dict | None = None,
     max_restarts: int = 10,
     device=None,
+    mesh=None,
 ) -> LoopReport:
     """Run (and re-run, on failure) the training job to ``num_steps`` on
-    ``device`` (the card by default).
+    ``device`` (the card by default), or as one rank of ``mesh``
+    (``launch.mesh.Mesh``, on its device).
 
     fail_at: {step: True}, raise Preemption *before* running that step.
-    resize_at: {step: None}, checkpoint and re-enter at that step (one
-    card: any other value raises ValueError).
+    resize_at: {step: None or a mesh equal to ``mesh``}, checkpoint and
+    re-enter at that step; another mesh raises ValueError.
     """
-    device = resolve_device(device)
+    device = resolve_device(mesh.device if device is None and mesh is not None
+                            else device)
     fail_at = dict(fail_at or {})
     resize_at = dict(resize_at or {})
-    if any(v is not None for v in resize_at.values()):
-        raise ValueError("resize_at values must be None: the port trains on "
-                         "one card and has no mesh to resize")
+    for step, new in resize_at.items():
+        if new is not None and (mesh is None or dict(new.shape)
+                                != dict(mesh.shape)):
+            raise ValueError(
+                f"resize_at step {step}: a mesh other than the loop's own "
+                f"({None if mesh is None else dict(mesh.shape)}); a resize "
+                "to another data extent is a new world, which the "
+                "controller's segments start (core.controller)")
     report = LoopReport()
     while True:
         try:
             _run_attempt(rcfg, ckpt_dir, num_steps, ckpt_every, device,
-                         batch_fn, fail_at, resize_at, report)
+                         mesh, batch_fn, fail_at, resize_at, report)
             return report
         except Preemption:
             report.restarts += 1
@@ -77,45 +94,50 @@ def _like(rcfg) -> TrainState:
     return TrainState(0, params, moments, moments)
 
 
-def _start(rcfg, ckpt_dir, device):
-    """(state, start step, step_fn) of a job entering on ``device``: a
-    fresh state from the run's seed, or the newest checkpoint in
-    ``ckpt_dir`` restored there; ``step_fn`` steps an LM over that
-    state's params. The loop's attempts and the controller's segments
-    both enter here."""
+def _start(rcfg, ckpt_dir, device, mesh=None):
+    """(state, start step, step_fn) of a job entering on ``device``, as
+    one rank of ``mesh`` if given: a fresh state from the run's seed (the
+    same on every rank), or the newest checkpoint in ``ckpt_dir``
+    restored there; the moments are the rank's ZeRO-1 slices under
+    ``step_fn.zero``. ``step_fn`` steps an LM over that state's params.
+    The loop's attempts and the controller's segments all enter here."""
+    zero = zero_for(rcfg, mesh)
     start = ckpt.latest_step(ckpt_dir)
     if start is None:
         gen = torch.Generator(device=device).manual_seed(rcfg.seed)
-        state = make_optimizer(rcfg).init(init_params(rcfg.model, gen,
-                                                      device))
+        state = make_optimizer(rcfg).init(
+            init_params(rcfg.model, gen, device), zero)
         start = 0
     else:
-        state, start = ckpt.restore(ckpt_dir, _like(rcfg), device=device)
+        state, start = ckpt.restore(ckpt_dir, _like(rcfg), device=device,
+                                    zero=zero)
     lm = LM(rcfg.model, state.params, device=device)
-    step_fn, _ = build_train_step(lm, rcfg)
+    step_fn, _ = build_train_step(lm, rcfg, mesh)
     return state, start, step_fn
 
 
-def _run_attempt(rcfg, ckpt_dir, num_steps, ckpt_every, device, batch_fn,
-                 fail_at, resize_at, report):
+def _run_attempt(rcfg, ckpt_dir, num_steps, ckpt_every, device, mesh,
+                 batch_fn, fail_at, resize_at, report):
     if batch_fn is None:
-        batch_fn = synthetic_batches(rcfg, device)
-    state, start, step_fn = _start(rcfg, ckpt_dir, device)
+        batch_fn = synthetic_batches(rcfg, device, mesh)
+    state, start, step_fn = _start(rcfg, ckpt_dir, device, mesh)
+    save = dict(mesh=mesh, zero=step_fn.zero)
 
     for step in range(start, num_steps):
         if fail_at.pop(step, None):
             raise Preemption(f"injected failure at step {step}")
         if step in resize_at:
             resize_at.pop(step)
-            ckpt.save(ckpt_dir, step, state)
+            ckpt.save(ckpt_dir, step, state, **save)
             report.resizes += 1
-            # re-enter on the same card; the restore re-places the state
+            # re-enter on the same devices; the restore re-places the state
             return _run_attempt(rcfg, ckpt_dir, num_steps, ckpt_every,
-                                device, batch_fn, fail_at, resize_at, report)
+                                device, mesh, batch_fn, fail_at, resize_at,
+                                report)
         state, metrics = step_fn(state, batch_fn(step))
         report.steps_run += 1
         report.losses.append(float(metrics["loss"]))
         if ckpt_every and (step + 1) % ckpt_every == 0:
-            ckpt.save(ckpt_dir, step + 1, state)
-    ckpt.save(ckpt_dir, num_steps, state)
+            ckpt.save(ckpt_dir, step + 1, state, **save)
+    ckpt.save(ckpt_dir, num_steps, state, **save)
     report.final_loss = report.losses[-1] if report.losses else float("nan")

@@ -1,4 +1,4 @@
-"""AdamW built from scratch (``repro.train.optimizer``).
+"""AdamW built from scratch, with ZeRO-1 moments (``repro.train.optimizer``).
 
 Moments are stored in ``moment_dtype`` (bf16 by default: optimizer state
 of 3x the bf16 params, not 12x); the update math runs in fp32 whatever the
@@ -7,6 +7,16 @@ as the JAX package computes them. The update writes params and moments in
 place under ``torch.no_grad``, a leaf whose fp32 temporaries would exceed
 ``SLICE_LIMIT_BYTES`` slice by slice along its leading axis (elementwise
 math: the same values as one pass).
+
+ZeRO-1 (``Zero1``): under a data mesh with ``ParallelConfig.zero1`` a
+rank keeps only its slice of ``m`` and ``v``: the one that
+``parallel.sharding.resolve_spec`` gives it under the ``fsdp_tp`` rules
+over the batch axes, as the reference's ``state_specs`` shard its moment
+storage. A leaf with no such dim keeps whole moments. The update runs on
+the matching slice of the parameter, which is then all-gathered along
+that dim. The reference leaves this dataflow (reduce-scatter, update,
+all-gather) to GSPMD; the port writes it out. ``AdamW.apply`` is
+elementwise, so the slices' updates are the whole update's bits.
 """
 from __future__ import annotations
 
@@ -15,7 +25,11 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.models.lm import DTYPES, sorted_tree_leaves, tree_map
+from repro_torch.models.lm import (
+    DTYPES, sorted_tree_leaves, tree_leaves, tree_map)
+from repro_torch.parallel.collectives import all_gather, all_reduce
+from repro_torch.parallel.sharding import (
+    AXIS_MODEL, batch_axes, resolve_spec)
 
 # A leaf whose fp32 copy exceeds this is clipped and updated in slices
 # along its leading axis: musicgen-large's stacked MLP leaves (48, 2048,
@@ -47,6 +61,87 @@ def _leaves(tree):
     return [t for _, t in sorted_tree_leaves(tree)]
 
 
+def unflatten(paths, values):
+    """A nested dict from '/'-joined paths and their values."""
+    out = {}
+    for path, val in zip(paths, values):
+        node = out
+        *dirs, last = path.split("/")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[last] = val
+    return out
+
+
+class Zero1:
+    """This rank's ZeRO-1 slices of a model's moments under ``mesh``.
+
+    ``cuts[path]`` is (dim, axes) for a leaf whose ``fsdp_tp`` placement
+    puts batch axes on ``dim`` (``axes``, a tuple of them), else None. A
+    rank holds the part of ``dim`` at its row-major index over ``axes``;
+    the ranks of the other batch axes hold the same part. The plan reads
+    only the mesh's ``axis_names``, ``shape`` and ``coords``, so a
+    shape-only stand-in of a large mesh serves; the collectives need the
+    port's ``launch.mesh.Mesh``."""
+
+    def __init__(self, cfg, mesh):
+        from repro_torch.bridge import meta_params, param_axes
+        self.mesh = mesh
+        axes = dict(tree_leaves(param_axes(cfg)))
+        self.cuts = {}
+        for path, t in tree_leaves(meta_params(cfg)):
+            spec = resolve_spec(axes[path], tuple(t.shape), mesh, "fsdp_tp")
+            self.cuts[path] = None
+            for dim, at in enumerate(spec):
+                at = (at,) if isinstance(at, str) else tuple(at or ())
+                on = tuple(a for a in at if a in batch_axes(mesh))
+                if on and AXIS_MODEL not in at:
+                    self.cuts[path] = (dim, on)
+                    break
+
+    def part(self, path: str, shape) -> tuple[int, int, int] | None:
+        """(dim, start, stop) of this rank's slice of leaf ``path``, or
+        None when it holds the leaf's moments whole."""
+        cut = self.cuts[path]
+        if cut is None:
+            return None
+        dim, on = cut
+        n = 1
+        i = 0
+        for a in on:
+            n *= self.mesh.shape[a]
+            i = i * self.mesh.shape[a] + self.mesh.coords[a]
+        size = shape[dim] // n
+        return dim, i * size, (i + 1) * size
+
+    def group(self, path: str):
+        return self.mesh.group(*self.cuts[path][1])
+
+    def local(self, path: str, t):
+        """This rank's slice of ``t`` (a view), or ``t`` itself."""
+        part = self.part(path, t.shape)
+        if part is None:
+            return t
+        dim, lo, hi = part
+        return t.narrow(dim, lo, hi - lo)
+
+    def slice_tree(self, tree):
+        """Each leaf's slice, as its own tensor."""
+        paths, leaves = zip(*tree_leaves(tree))
+        return unflatten(paths, [
+            t if self.cuts[p] is None else self.local(p, t).clone()
+            for p, t in zip(paths, leaves)])
+
+    def gather_tree(self, tree):
+        """The whole leaves of a tree of slices (a collective: every rank
+        calls it, in the same order)."""
+        paths, leaves = zip(*tree_leaves(tree))
+        return unflatten(paths, [
+            t if self.cuts[p] is None
+            else all_gather(t, self.cuts[p][0], self.group(p))
+            for p, t in zip(paths, leaves)])
+
+
 @dataclass(frozen=True)
 class AdamW:
     lr: float = 3e-4
@@ -60,14 +155,18 @@ class AdamW:
     min_lr_frac: float = 0.1
     moment_dtype: str = "bfloat16"
 
-    def init(self, params) -> TrainState:
+    def init(self, params, zero: Zero1 | None = None) -> TrainState:
+        """Zero moments; under ``zero``, this rank's slices of them."""
         mdt = DTYPES[self.moment_dtype]
+        device = next(tree_leaves(params))[1].device
+        like = params if zero is None else zero.slice_tree(tree_map(
+            lambda t: torch.empty(t.shape, device="meta"), params))
 
         def zeros(t):
-            return torch.zeros(t.shape, dtype=mdt, device=t.device)
+            return torch.zeros(t.shape, dtype=mdt, device=device)
 
-        return TrainState(step=0, params=params, m=tree_map(zeros, params),
-                          v=tree_map(zeros, params))
+        return TrainState(step=0, params=params,
+                          m=tree_map(zeros, like), v=tree_map(zeros, like))
 
     def schedule(self, step) -> torch.Tensor:
         """Linear warmup then cosine decay to min_lr_frac: an fp32 scalar
@@ -82,15 +181,31 @@ class AdamW:
         return self.lr * warm * frac
 
     @torch.no_grad()
-    def apply(self, state: TrainState, grads) -> tuple[TrainState, dict]:
+    def apply(self, state: TrainState, grads,
+              zero: Zero1 | None = None) -> tuple[TrainState, dict]:
         """One update from ``grads`` (a nested dict laid out as the params,
         any float dtype: each slice is cast to fp32 here), in place, leaves
         in the reference's order. Returns (state, {"grad_norm", "lr"}),
-        fp32 scalar tensors, grad_norm on the params' device."""
-        leaves = list(zip(_leaves(state.params), _leaves(grads),
+        fp32 scalar tensors, grad_norm on the params' device.
+
+        Under ``zero`` the moments are this rank's slices: each leaf's
+        slice of the parameter is updated and then all-gathered. A
+        gradient is the whole leaf's (every rank holds the reduced
+        gradient) or already this rank's slice (a reduce-scatter); the
+        global norm sums the whole leaves in leaf order on every rank, and
+        the slices' squares over the batch axes, so each leaf counts once
+        and every rank clips by the same scale."""
+        paths = [p for p, _ in sorted_tree_leaves(state.params)]
+        leaves = list(zip(paths, _leaves(state.params), _leaves(grads),
                           _leaves(state.m), _leaves(state.v)))
+        whole = [g for _, p, g, _, _ in leaves if g.shape == p.shape]
         sq = sum(part.float().square().sum()
-                 for _, g, _, _ in leaves for part in _slices(g))
+                 for g in whole for part in _slices(g))
+        if len(whole) < len(leaves):
+            mesh = zero.mesh
+            sliced = sum(g.float().square().sum()
+                         for _, p, g, _, _ in leaves if g.shape != p.shape)
+            sq = sq + all_reduce(sliced, mesh.group(*batch_axes(mesh)))
         gnorm = torch.sqrt(sq)
         scale = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
@@ -101,7 +216,12 @@ class AdamW:
         bc2 = 1 - self.b2 ** stepf
         b1, b2, eps, wd = self.b1, self.b2, self.eps, self.weight_decay
         dev_lr, bc1_d, bc2_d = (t.to(gnorm.device) for t in (lr, bc1, bc2))
-        for p, g, m, v in leaves:
+        for path, p, g, m, v in leaves:
+            sharded = zero is not None and zero.cuts[path] is not None
+            if sharded:
+                p_all, p = p, zero.local(path, p)
+                if g.shape == p_all.shape:
+                    g = zero.local(path, g)
             for ps, gs, ms, vs in zip(_slices(p), _slices(g), _slices(m),
                                       _slices(v)):
                 gf = gs.float() * scale
@@ -112,5 +232,8 @@ class AdamW:
                 ps.copy_(ps.float() - dev_lr * u)
                 ms.copy_(mf)
                 vs.copy_(vf)
+            if sharded:
+                p_all.copy_(all_gather(p, zero.cuts[path][0],
+                                       zero.group(path)))
         state.step = step
         return state, {"grad_norm": gnorm, "lr": lr}

@@ -1,5 +1,6 @@
 """Train-step builder: loss and gradients, microbatch accumulation, AdamW
-(``repro.train.train_step``), on one card.
+(``repro.train.train_step``), on one device or as one rank of a data
+mesh.
 
 With ``microbatches > 1`` the batch splits along its rows; each
 microbatch's gradients are added into a bf16 buffer (bf16 whatever the
@@ -8,13 +9,51 @@ the count before the update. The loss is the mean over microbatches and
 the other metrics are the last microbatch's. ``torch.autograd.grad``
 returns each microbatch's gradients without touching ``.grad``, whose
 accumulation would run in the params' dtype.
+
+Under a mesh (``launch.mesh.Mesh``) whose ``model`` axis holds one rank,
+the step is data-parallel over the batch axes (``pod``, ``data``), and
+computes the reference's global-batch step: the same loss, gradients and
+update as one device, up to the order of the sums.
+
+- Every rank is given the global batch. Microbatch i is the global rows
+  ``[i * size, (i + 1) * size)``, and a rank takes its block of those
+  rows, in the order of its index over the batch axes: where rows couple
+  (the MoE capacity), the slots fill as on one device.
+- A rank's loss is its share of the global loss (``LM.loss`` under the
+  batch group); the shares' gradients accumulate locally and are summed
+  over the batch group once, after the microbatches, as the reference
+  defers its cross-``data`` reduction: a reduce-scatter onto the ZeRO-1
+  slices where the backend has one (NCCL), else an all-reduce (gloo).
+  The loss and metrics are summed once too.
+- With ``zero1`` (the default) each rank keeps its slices of the moments
+  (``optimizer.Zero1``).
+- With ``grad_compress_pod`` on a mesh of two or more pods, the loss
+  context is the pod's data ranks, as the reference's ``shard_map`` over
+  ``pod`` makes it; each microbatch's gradients are summed over those
+  ranks and averaged over pods through int8 (``parallel.compression``),
+  as the reference's wrapped ``grad_fn`` does per microbatch. Without a
+  pod axis the flag changes nothing, as in the reference.
+
+A mesh whose ``model`` axis holds more than one rank, and the ``fsdp_tp``
+strategy under a data mesh, raise: training under the ``model`` axis and
+FSDP parameter storage are later slices of the port (ROADMAP queue 3).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.lm import LM, tree_leaves
-from repro_torch.train.optimizer import AdamW, TrainState
+from repro_torch.parallel.collectives import (
+    all_reduce, gloo_transport, reduce_metrics)
+from repro_torch.parallel.compression import build_pod_compressed_grad_fn
+from repro_torch.parallel.sharding import (
+    AXIS_DATA, AXIS_MODEL, AXIS_POD, batch_axes, mesh_axis_size)
+from repro_torch.train.optimizer import AdamW, TrainState, Zero1, unflatten
+
+# An all-reduce of many gradient leaves goes in flat buckets of at most
+# this many bytes: one collective a bucket, not one a leaf.
+BUCKET_BYTES = 256 * 2**20
 
 
 def make_optimizer(rcfg) -> AdamW:
@@ -25,65 +64,172 @@ def make_optimizer(rcfg) -> AdamW:
         total_steps=rcfg.total_steps, moment_dtype=rcfg.moment_dtype)
 
 
-def _unflatten(paths, values):
-    out = {}
-    for path, val in zip(paths, values):
-        node = out
-        *dirs, last = path.split("/")
-        for d in dirs:
-            node = node.setdefault(d, {})
-        node[last] = val
+def check_data_mesh(mesh, parallel) -> None:
+    """Raise for what the port does not train under yet."""
+    if mesh is None:
+        return
+    if mesh_axis_size(mesh, AXIS_MODEL) > 1:
+        raise ValueError(
+            f"a mesh with {mesh.shape[AXIS_MODEL]} ranks on the model axis: "
+            "the port trains data-parallel only; training under the model "
+            "axis (autograd through the TP/EP collectives) is ROADMAP "
+            "queue 3")
+    if parallel.strategy == "fsdp_tp":
+        raise ValueError("strategy 'fsdp_tp' under a data mesh: FSDP "
+                         "parameter storage is ROADMAP queue 3; use 'tp' "
+                         "(with zero1 for sharded moments)")
+
+
+def zero_for(rcfg, mesh) -> Zero1 | None:
+    """The ZeRO-1 plan of a run on ``mesh``: None on one rank or without
+    ``zero1``."""
+    if mesh is None or not rcfg.parallel.zero1 or mesh.size(
+            *batch_axes(mesh)) == 1:
+        return None
+    return Zero1(rcfg.model, mesh)
+
+
+def all_reduce_flat(tensors, group) -> list:
+    """The sums over ``group`` of ``tensors``, in flat buckets of one
+    dtype and at most ``BUCKET_BYTES``; new tensors, on each input's
+    device."""
+    out = [None] * len(tensors)
+    i = 0
+    while i < len(tensors):
+        dtype, j, nbytes = tensors[i].dtype, i, 0
+        while (j < len(tensors) and tensors[j].dtype == dtype
+               and (j == i or nbytes + tensors[j].numel()
+                    * tensors[j].element_size() <= BUCKET_BYTES)):
+            nbytes += tensors[j].numel() * tensors[j].element_size()
+            j += 1
+        flat = all_reduce(torch.cat([t.reshape(-1) for t in tensors[i:j]]),
+                          group)
+        for k, part in zip(range(i, j), flat.split(
+                [t.numel() for t in tensors[i:j]])):
+            out[k] = part.view(tensors[k].shape)
+        i = j
     return out
 
 
-def build_train_step(lm: LM, rcfg):
+def _reduce_scatter(g, dim: int, group):
+    """This rank's slice along ``dim`` of the sum over ``group`` of g."""
+    n = dist.get_world_size(group)
+    src = g.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n,) + src.shape[1:], dtype=g.dtype,
+                      device=g.device)
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def reduce_grads(grads, paths, mesh, zero: Zero1 | None):
+    """The gradients summed over the mesh's batch axes: each leaf whole
+    on every rank, or, under ZeRO-1 on a backend with a reduce-scatter
+    (NCCL), this rank's slice of a leaf that is cut over every batch
+    axis."""
+    bax = batch_axes(mesh)
+    group = mesh.group(*bax)
+    scatter = (zero is not None and not gloo_transport(group)
+               and dist.get_world_size(group) > 1)
+    out = list(grads)
+    rest = []
+    for k, (path, g) in enumerate(zip(paths, grads)):
+        cut = zero.cuts[path] if scatter else None
+        if cut is not None and cut[1] == bax:
+            out[k] = _reduce_scatter(g, cut[0], group)
+        else:
+            rest.append(k)
+    for k, g in zip(rest, all_reduce_flat([grads[k] for k in rest], group)):
+        out[k] = g
+    return out
+
+
+def build_train_step(lm: LM, rcfg, mesh=None):
     """Returns (train_step, opt); train_step(state, batch) -> (state,
     metrics) updates ``state`` (whose params must be ``lm.params``) in
-    place, on the LM's device.
+    place, on the LM's device. Under ``mesh`` every rank calls it with
+    the global batch and gets the global metrics; build the state with
+    ``opt.init(lm.params, zero)``, ``zero`` being ``train_step.zero``
+    (None without ZeRO-1).
 
     Sets ``requires_grad`` on every param leaf; the serving passes run
     under ``torch.no_grad`` and are unaffected.
     """
-    if rcfg.parallel.grad_compress_pod:
-        raise ValueError("grad_compress_pod compresses a cross-pod gradient "
-                         "all-reduce; the port trains on one card")
-    opt = make_optimizer(rcfg)
     parallel = rcfg.parallel
-    n_micro = parallel.microbatches
+    check_data_mesh(mesh, parallel)
+    opt = make_optimizer(rcfg)
+    n_micro = max(parallel.microbatches, 1)
     paths, leaves = zip(*tree_leaves(lm.params))
     for t in leaves:
         t.requires_grad_(True)
+    bax = batch_axes(mesh) if mesh is not None else ()
+    n = mesh.size(*bax) if bax else 1
+    rank = mesh.index(*bax) if bax else 0
+    compress = (n > 1 and parallel.grad_compress_pod
+                and mesh_axis_size(mesh, AXIS_POD) > 1)
+    if compress:
+        # the reference's shard_map over pod: each pod's own batch
+        loss_axes = (AXIS_DATA,) if AXIS_DATA in mesh.axis_names else ()
+    else:
+        loss_axes = bax
+    loss_group = (mesh.group(*loss_axes)
+                  if loss_axes and mesh.size(*loss_axes) > 1 else None)
+    zero = zero_for(rcfg, mesh)
 
     def grad_fn(batch):
-        loss, metrics = lm.loss(batch, parallel)
+        loss, metrics = lm.loss(batch, parallel, data=loss_group)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), metrics, grads
+
+    if compress:
+        def pod_grad_fn(batch):
+            loss, metrics, grads = grad_fn(batch)
+            if loss_group is None:
+                return loss, metrics, grads
+            grads = all_reduce_flat(list(grads), loss_group)
+            return (*reduce_metrics(loss, metrics, loss_group), grads)
+
+        step_grad_fn = build_pod_compressed_grad_fn(pod_grad_fn, mesh)
+    else:
+        step_grad_fn = grad_fn
 
     def train_step(state: TrainState, batch):
         if state.params is not lm.params:
             raise ValueError("the state's params are not the LM's")
-        if n_micro <= 1:
-            loss, metrics, grads = grad_fn(batch)
+        rows = next(iter(batch.values())).shape[0]
+        if rows % (n_micro * n):
+            raise ValueError(f"batch of {rows} rows does not split into "
+                             f"{n_micro} microbatches over {n} ranks")
+        size = rows // n_micro
+        part = size // n
+
+        def micro(i):
+            lo = i * size + rank * part
+            return {k: v[lo:lo + part] for k, v in batch.items()}
+
+        if n_micro == 1:
+            loss, metrics, grads = step_grad_fn(micro(0))
         else:
-            rows = next(iter(batch.values())).shape[0]
-            if rows % n_micro:
-                raise ValueError(f"batch of {rows} rows does not split into "
-                                 f"{n_micro} microbatches")
-            size = rows // n_micro
             grads = [torch.zeros(t.shape, dtype=torch.bfloat16,
                                  device=t.device) for t in leaves]
             loss = torch.zeros((), dtype=torch.float32, device=lm.device)
             for i in range(n_micro):
-                mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-                mloss, metrics, g = grad_fn(mb)
+                mloss, metrics, g = step_grad_fn(micro(i))
                 for acc, gi in zip(grads, g):
                     acc += gi.to(torch.bfloat16)
                 del g
                 loss = loss + mloss
+            if n > 1 and not compress:
+                # summed over ranks in fp32, then averaged
+                grads = [acc.float() for acc in grads]
+        if n > 1 and not compress:
+            grads = reduce_grads(grads, paths, mesh, zero)
+            loss, metrics = reduce_metrics(loss, metrics, mesh.group(*bax))
+        if n_micro > 1:
             for acc in grads:      # apply casts each slice to fp32
                 acc.div_(n_micro)
             loss = loss / n_micro
-        state, opt_metrics = opt.apply(state, _unflatten(paths, grads))
+        state, opt_metrics = opt.apply(state, unflatten(paths, grads), zero)
         return state, dict(metrics, loss=loss, **opt_metrics)
 
+    train_step.zero = zero
     return train_step, opt

@@ -5,14 +5,17 @@ against ``repro.core.controller``, on the CPU.
   ``tests/test_invariant_guards.py`` that stub the training segment, on
   both packages, each package's trace equal to the reference's; mix D
   (``benchmarks/torch_elastic.py``) on a stub segment, both packages;
-- the port's own guards: a job across distinct devices raises, and
-  "cuda" and "cuda:0" are one card;
+- the port's own guards: a job across distinct devices runs on their
+  world, one card named n times stays in this process, and "cuda" and
+  "cuda:0" are one card;
 - live parity: mix D on qwen2-7b's smoke config in fp32, the port in this
   process on 4 CPU slots and the JAX controller in a subprocess with 4
   forced host devices (a grown job needs a real 2-device data mesh), both
   from one step-0 checkpoint that JAX writes: equal decisions, and every
   loss within rtol 1e-4 (the tolerance of
   ``test_torch_train_parity.py::test_port_resumes_a_jax_checkpoint``);
+  the same mix on ``cpu:0``...``cpu:3``, whose grown segments run as
+  worlds of 2 gloo ranks, against the same JAX run;
 - bitwise: the port's mix D losses equal a straight ``train_loop`` run's,
   ``train-0``'s step 3 twice;
 - the two examples, ``examples/{elastic_train,serve_workflow}_torch.py``,
@@ -245,12 +248,21 @@ def _port(devices):
 
 
 def test_job_across_distinct_devices_raises():
-    ctl = _port([torch.device("cuda", 0), torch.device("cuda", 1)])
+    """A job across distinct devices no longer raises: it runs on their
+    world, one rank a device (``_mesh_for`` gives the list); one card
+    named n times stays one device, in this process; a CPU device of any
+    index runs on the CPU."""
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    ctl = _port(cards)
     assert ctl._mesh_for(1) == torch.device("cuda", 0)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        ctl._mesh_for(2)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        _port([CPU, torch.device("meta")])._mesh_for(2)
+    assert ctl._mesh_for(2) == cards
+    mixed = _port([CPU, torch.device("meta")])
+    assert mixed._mesh_for(2) == [CPU, torch.device("meta")]
+    cpus = _port([torch.device("cpu", i) for i in range(4)])
+    assert cpus._mesh_for(1) == CPU
+    assert cpus._mesh_for(3) == [torch.device("cpu", i) for i in range(3)]
+    assert _port([torch.device("cuda", 0)] * 2)._mesh_for(2) == \
+        torch.device("cuda", 0)
 
 
 def test_pool_names_one_card_however_spelled(monkeypatch):
@@ -333,26 +345,35 @@ print(json.dumps({"decisions": te.decisions(ctl, prov),
 """
 
 
-def test_live_mix_d_matches_jax_controller(tmp_path, monkeypatch):
-    """Mix D live on both packages from one step-0 checkpoint (JAX's
-    init): equal decisions, losses within rtol 1e-4. JAX's grown segments
-    and every segment of train-1 run on a 2-device data mesh."""
-    jrun, trun = _runs()
-    jax_train_loop(jrun, ckpt_dir=str(tmp_path / "init"), num_steps=0,
+@pytest.fixture(scope="module")
+def jax_mix(tmp_path_factory):
+    """(the JAX controller's mix D: decisions and losses, the step-0
+    checkpoint of JAX's init that both packages' jobs start from). JAX's
+    grown segments and every segment of train-1 run on a 2-device data
+    mesh."""
+    jrun, _ = _runs()
+    work = tmp_path_factory.mktemp("mix")
+    jax_train_loop(jrun, ckpt_dir=str(work / "init"), num_steps=0,
                    ckpt_every=0)
-    for side in ("jax", "port"):
-        for name, *_ in te.JOBS:
-            shutil.copytree(tmp_path / "init", tmp_path / side / name)
+    for name, *_ in te.JOBS:
+        shutil.copytree(work / "init", work / "jax" / name)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     out = subprocess.run([sys.executable, "-c", _JAX_MIX,
-                          str(tmp_path / "jax")], env=env, cwd=ROOT,
+                          str(work / "jax")], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
-    want = json.loads(out.stdout.splitlines()[-1])
+    return json.loads(out.stdout.splitlines()[-1]), work / "init"
+
+
+def _port_mix_matches(want, init, root, devices, monkeypatch):
+    """Mix D on the port's controller over ``devices`` from ``init``:
+    decisions equal to ``want``'s, losses within rtol 1e-4."""
+    for name, *_ in te.JOBS:
+        shutil.copytree(init, root / name)
     counts = _count_resizes(monkeypatch, "repro_torch")
-    ctl, prov = te.run_mix(te.PORT, trun, str(tmp_path / "port"),
-                           [CPU] * te.POOL)
+    _, trun = _runs()
+    ctl, prov = te.run_mix(te.PORT, trun, str(root), devices)
     assert te.decisions(ctl, prov) == want["decisions"]
     assert want["decisions"]["deltas"] == [1, 1, -2]   # grant, DR, destroy
     assert counts == {"grow": 3, "shrink": 2}
@@ -362,6 +383,37 @@ def test_live_mix_d_matches_jax_controller(tmp_path, monkeypatch):
         assert len(task.losses) == len(ref)
         np.testing.assert_allclose(task.losses, ref, rtol=1e-4,
                                    err_msg=task.name)
+
+
+def test_live_mix_d_matches_jax_controller(jax_mix, tmp_path, monkeypatch):
+    """Mix D live on both packages from one step-0 checkpoint (JAX's
+    init): equal decisions, losses within rtol 1e-4. The port's pool is
+    4 slots of the CPU, so its grown segments run in this process."""
+    want, init = jax_mix
+    _port_mix_matches(want, init, tmp_path, [CPU] * te.POOL, monkeypatch)
+
+
+def test_live_mix_d_on_distinct_devices_runs_worlds(jax_mix, tmp_path,
+                                                    monkeypatch):
+    """The port's pool is ``cpu:0``...``cpu:3``: a segment over 2 slots
+    runs on a world of 2 gloo ranks (``launch.world.spawn_world``), data-
+    parallel over the batch, as JAX's runs on its 2-device data mesh. Its
+    decisions equal the JAX controller's and its losses lie within rtol
+    1e-4 of them; 6 of the 8 segments run as worlds."""
+    from repro_torch.launch import world
+    want, init = jax_mix
+    worlds = []
+    spawn = world.spawn_world
+
+    def counted(n, *a, **kw):
+        worlds.append((n, kw["devices"]))
+        return spawn(n, *a, **kw)
+
+    monkeypatch.setattr(_mod("repro_torch", "core.controller"),
+                        "spawn_world", counted)
+    devices = [torch.device("cpu", i) for i in range(te.POOL)]
+    _port_mix_matches(want, init, tmp_path, devices, monkeypatch)
+    assert worlds == [(2, devices[:2])] * 6
 
 
 def test_live_mix_d_losses_equal_a_straight_run_bitwise(tmp_path):

@@ -885,3 +885,77 @@ def test_tensor_parallel_logits_equal_one_rank(card, backend,
             torch.testing.assert_close(out[key], want.cpu(), rtol=1e-4,
                                        atol=1e-4)
             assert torch.equal(out[key], outs[0][key])
+
+
+# ------------------------------------------------ data-parallel training
+def _dp_step(mesh):
+    """One data-parallel step of qwen2-7b's smoke config in fp32 on the
+    card, as a rank of ``mesh`` (None: alone): global batch 4 whose rows
+    hold 6, 12, 19 and 25 tokens of the mask, ZeRO-1 on, fp32 moments.
+    Returns the metrics, the updated params, the launch counts and the
+    moment entries this rank holds."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import (
+        ParallelConfig, RunConfig, ShapeConfig, get_smoke_config)
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.models.lm import LM, tree_leaves, tree_map
+    from repro_torch.train.train_step import build_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("qwen2-7b"), dtype="float32")
+    rcfg = RunConfig(model=cfg, shape=ShapeConfig("dp", "train", 32, 4),
+                     parallel=ParallelConfig(attn_q_chunk=16,
+                                             attn_kv_chunk=16),
+                     warmup_steps=2, moment_dtype="float32")
+    dev = mesh.device if mesh is not None else torch.device("cuda", 0)
+    lm = LM(cfg, tree_map(lambda t: t.to(dev), init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu")), device=dev)
+    step_fn, opt = build_train_step(lm, rcfg, mesh)
+    state = opt.init(lm.params, step_fn.zero)
+    batch = synthetic_batches(rcfg, dev)(0)
+    keep = torch.tensor([6, 12, 19, 25], device=dev)
+    batch["mask"] = (torch.arange(32, device=dev)[None, :]
+                     < keep[:, None]).float()
+    ops.reset_launch_counts()
+    state, met = step_fn(state, batch)
+    return {"metrics": {k: float(v) for k, v in met.items()},
+            "params": {p: t.detach().cpu()
+                       for p, t in tree_leaves(lm.params)},
+            "launches": ops.launch_counts(),
+            "backend": dist.get_backend() if mesh is not None else None,
+            "moments": sum(t.numel() for _, t in tree_leaves(state.m))}
+
+
+def _dp_rank(rank, mesh):
+    return _dp_step(mesh)
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_data_parallel_step_equals_one_rank(card, backend):
+    """A 2-rank data-parallel step (``launch.world.spawn_world``): gloo
+    with both ranks on the one card, NCCL with a card a rank (the
+    reduce-scatter onto the ZeRO-1 slices). Loss and metrics within rtol
+    1e-5 of one rank's step at the same global batch, the updated params
+    within 1e-4 and equal bit for bit on both ranks, each rank holding
+    half the moments; no kernel launches (the training route is plain
+    PyTorch)."""
+    from repro_torch.launch.world import spawn_world
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip("NCCL puts one rank on a card: needs two cards")
+    devices = ["cuda:0", "cuda:0"] if backend == "gloo" else \
+        ["cuda:0", "cuda:1"]
+    ranks = spawn_world(2, _dp_rank, devices=devices)
+    one = _dp_step(None)
+    for r in ranks:
+        assert r["backend"] == backend
+        assert not any(r["launches"].values()), r["launches"]
+        assert one["moments"] / 2 <= r["moments"] < 0.51 * one["moments"]
+        for k, want in one["metrics"].items():
+            assert r["metrics"][k] == pytest.approx(want, rel=1e-5), k
+        for p, want in one["params"].items():
+            torch.testing.assert_close(r["params"][p], want, rtol=1e-4,
+                                       atol=1e-4)
+            assert torch.equal(r["params"][p], ranks[0]["params"][p]), p

@@ -9,6 +9,7 @@ package.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import msgpack
 import numpy as np
@@ -307,11 +308,27 @@ def test_serving_sees_the_trained_weights():
 
 
 def test_train_step_refuses_pod_compression_and_foreign_state():
-    rcfg = smoke_run("qwen2-7b", parallel=dataclasses.replace(
-        SMOKE_PARALLEL, grad_compress_pod=True))
-    lm = _lm(rcfg)
-    with pytest.raises(ValueError, match="one card"):
-        build_train_step(lm, rcfg)
+    """Pod compression without a pod axis is the identity, as in the
+    reference (which wraps only a mesh whose pod axis holds 2 or more):
+    the same loss and params bit for bit. A state over other params is
+    refused."""
+    from repro_torch.parallel.compression import build_pod_compressed_grad_fn
+
+    def fn(batch):
+        return batch
+    assert build_pod_compressed_grad_fn(fn, None) is fn
+    outs = []
+    for compress in (False, True):
+        rcfg = smoke_run("qwen2-7b", parallel=dataclasses.replace(
+            SMOKE_PARALLEL, grad_compress_pod=compress))
+        lm = _lm(rcfg)
+        step_fn, opt = build_train_step(lm, rcfg)
+        state, met = step_fn(opt.init(lm.params),
+                             synthetic_batches(rcfg, "cpu")(0))
+        outs.append((float(met["loss"]), dict(tree_leaves(state.params))))
+    assert outs[0][0] == outs[1][0]
+    for path, t in outs[0][1].items():
+        assert torch.equal(t, outs[1][1][path]), path
     rcfg = smoke_run("qwen2-7b")
     step_fn, opt = build_train_step(lm, rcfg)
     other = tree_map(lambda t: t.detach().clone(), lm.params)
@@ -361,16 +378,21 @@ def test_preempt_resume_losses_bit_identical(tmp_path):
 
 def test_resize_checkpoints_and_reenters(tmp_path):
     """resize_at {step: None} checkpoints and re-enters on the same card,
-    bit-identical to an uninterrupted run; a mesh value raises."""
+    bit-identical to an uninterrupted run; a mesh other than the loop's
+    own (here: none) raises, naming the controller's segments, which
+    start a world of another size. The loop under its own mesh re-enters
+    in ``tests/test_torch_train_dp.py``."""
     rcfg = smoke_run("qwen2-7b", total_steps=6)
     ref = train_loop(rcfg, ckpt_dir=str(tmp_path / "ref"), num_steps=6,
                      ckpt_every=0, device="cpu")
     rep = train_loop(rcfg, ckpt_dir=str(tmp_path / "rs"), num_steps=6,
                      ckpt_every=0, resize_at={3: None}, device="cpu")
     assert rep.resizes == 1 and rep.losses == ref.losses
-    with pytest.raises(ValueError, match="one card"):
+    other = SimpleNamespace(axis_names=("data", "model"),
+                            shape={"data": 2, "model": 1})
+    with pytest.raises(ValueError, match="other than the loop's own"):
         train_loop(rcfg, ckpt_dir=str(tmp_path / "x"), num_steps=6,
-                   resize_at={3: "mesh"}, device="cpu")
+                   resize_at={3: other}, device="cpu")
 
 
 def test_loop_gives_up_after_max_restarts(tmp_path):
