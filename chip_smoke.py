@@ -144,6 +144,29 @@ dp. data-parallel training (``train.train_step`` under a mesh): a world
    whole, the full-depth ZeRO-1 bytes from ``meta_params``, and the launch
    counters, which stay 0 here and in the ranks.
 
+tp-train. training under the ``model`` axis (``train.train_step`` on a
+   (model 2) mesh, ``bridge.ModelSplit``): a world of 2 gloo ranks on the
+   card (``spawn_world(..., model=2)``), each holding its half of the
+   heads, MLP columns, vocab rows (and Mamba2 heads, experts), against
+   one rank at the same batch. (f1) qwen3-14b at published widths cut to
+   TP_TRAIN_LAYERS of 40 layers (2.216 B params), fp32, seq 512, global
+   batch 2: each rank takes the one-rank step in turn, alone on the card,
+   and keeps its slices of it; the world's loss and grad norm within
+   TRAIN_LOSS_RTOL, every gradient and updated param slice within the
+   train phase's fp32 bounds (scaled by the whole leaf), the gradients of
+   the leaves every rank holds whole equal bit for bit on the ranks, the
+   params a rank holds measured against the count, then the TF32
+   control; (f2) the cut in bf16 through ``train_loop(mesh=)``:
+   TP_TRAIN_STEPS steps with checkpoints every 4 and a preemption before
+   step 6, whose replayed steps 4-5 repeat their losses bit for bit, and
+   the next step from the world's last checkpoint on one rank outside
+   any world within DP_NEXT_RTOL of the world's; (e3)'s jamba smoke at
+   capacity factor 0.5 as (f3): attention, Mamba2 heads and experts split,
+   each rank dropping what one rank drops, gradients within
+   TRAIN_ATOL["deep ssm"]. It prints each rank's seconds a bf16 step
+   beside one rank's with the share in the ``model`` collectives, and the
+   launch counters, which stay 0 here and in the ranks.
+
 The last three lines are the ``nvidia-smi`` name and power limit, a JSON
 object with one entry per kernel, and ``{"ok": true, "device": ...}``.
 """
@@ -259,6 +282,14 @@ DP_CAPACITY_FACTOR = 0.5
 # differently; it read 1.2e-7 on the H100 at step 12 of a 12-step run
 # (one fp32 ulp), and a params leaf restored wrong moves it by units
 DP_NEXT_RTOL = 1e-3
+
+
+# the tp-train phase: a world of TP_TRAIN_WORLD gloo ranks on the card at
+# (model TP_TRAIN_WORLD); qwen3-14b at published widths cut to
+# TP_TRAIN_LAYERS of 40 layers, seq 512, global batch 2; (f2) runs
+# TP_TRAIN_STEPS bf16 steps, the timed run TP_TIMED_STEPS after a warm-up
+TP_TRAIN_WORLD, TP_TRAIN_LAYERS = 2, 2
+TP_TRAIN_STEPS, TP_TIMED_STEPS = 8, 3
 
 
 class SmokeError(RuntimeError):
@@ -2246,13 +2277,16 @@ def loss_and_grads(lm, batch, parallel):
     return loss.item(), metrics, dict(zip(paths, grads))
 
 
-def grad_errors(card, cpu, kind):
+def grad_errors(card, cpu, kind, scales=None):
     """(worst |card - cpu|, worst (err / bound), its leaf, {leaf: (worst
-    err, ratio, scale)}) of two {path: gradient} maps."""
+    err, ratio, scale)}) of two {path: gradient} maps, on ``cpu``'s
+    devices. ``scales``: {path: the whole leaf's largest |gradient|} where
+    the maps hold slices of the leaves, else None."""
     worst_abs, worst_ratio, worst_leaf, per_leaf = 0.0, 0.0, "", {}
     for path, ref in cpu.items():
-        out = card[path].cpu()
-        scale = max(1.0, ref.abs().max().item())
+        out = card[path].to(ref.device)
+        scale = max(1.0, scales[path] if scales is not None
+                    else ref.abs().max().item())
         bound = TRAIN_RTOL * ref.abs() + TRAIN_ATOL[kind] * scale
         err = (out - ref).abs()
         check(bool(torch.isfinite(out).all()), f"{path}: gradient not "
@@ -2612,18 +2646,18 @@ def dp_uneven_batch(rcfg):
 
 
 @contextlib.contextmanager
-def captured_grads(into):
-    """Record the gradients ``AdamW.apply`` is given (fp32 CPU copies,
-    by path) into ``into``: under a mesh, the ones summed over the
-    ranks."""
+def captured_grads(into, device="cpu"):
+    """Record the gradients ``AdamW.apply`` is given (fp32 copies on
+    ``device``, by path) into ``into``: under a mesh, the ones summed over
+    the ranks (a rank's slices under a ``model`` axis)."""
     from repro_torch.models.lm import tree_leaves
     from repro_torch.train import optimizer
     orig = optimizer.AdamW.apply
 
-    def apply(self, state, grads, zero=None):
-        into.update({p: g.detach().float().cpu()
+    def apply(self, state, grads, zero=None, split=None):
+        into.update({p: g.detach().float().to(device)
                      for p, g in tree_leaves(grads)})
-        return orig(self, state, grads, zero)
+        return orig(self, state, grads, zero, split)
 
     optimizer.AdamW.apply = apply
     try:
@@ -2651,76 +2685,111 @@ def counted_drops(into):
         moe.slots = orig
 
 
-def dp_step(rcfg, batch, mesh=None, seed=7):
+def card_step(rcfg, batch, mesh=None, split=None, seed=7):
     """One train step of ``rcfg`` from a fresh init of ``seed`` on the card,
-    as one rank of ``mesh`` (None: alone). Returns (metrics as floats,
-    updated params as fp32 CPU copies, the gradients apply was given,
-    moment bytes this rank allocated)."""
+    as one rank of ``mesh`` (its slices over ``model``) or, with ``mesh``
+    None, alone on the whole model. Returns a dict: the metrics as floats;
+    the updated params and the gradients ``AdamW.apply`` was given, fp32
+    on the card, each cut to ``split``'s slices (``bridge.ModelSplit``)
+    when alone with one given; each leaf's whole (largest |gradient|,
+    largest |param|) when alone; the bytes the params and the moments
+    took (``memory_allocated``)."""
     from repro_torch.bridge import init_params
     from repro_torch.models.lm import LM, tree_leaves
     from repro_torch.train.train_step import build_train_step
     cfg = rcfg.model
-    lm = LM(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(
-        seed), "cuda"), device="cuda")
-    step_fn, opt = build_train_step(lm, rcfg, mesh)
     torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), "cuda", mesh=mesh, parallel=rcfg.parallel)
+    held = torch.cuda.memory_allocated() - before
+    lm = LM(cfg, params, device="cuda")
+    step_fn, opt = build_train_step(lm, rcfg, mesh)
     before = torch.cuda.memory_allocated()
     state = opt.init(lm.params, step_fn.zero)
     moment_bytes = torch.cuda.memory_allocated() - before
     grads = {}
-    with captured_grads(grads):
+    with captured_grads(grads, "cuda"):
         state, met = step_fn(state, batch)
-    params = {p: t.detach().float().cpu() for p, t in tree_leaves(lm.params)}
-    return ({k: float(v) for k, v in met.items()}, params, grads,
-            moment_bytes)
+    out = {"metrics": {k: float(v) for k, v in met.items()},
+           "held": held, "moment_bytes": moment_bytes}
+    params = {p: t.detach() for p, t in tree_leaves(lm.params)}
+    del state, step_fn, lm
+    if mesh is None:
+        out["scales"] = {p: (grads[p].abs().max().item(),
+                             t.abs().max().item()) for p, t in params.items()}
+    cut = (lambda p, t: split.local(p, t).float().clone()) if (
+        mesh is None and split is not None) else (lambda p, t: t.float())
+    out["params"] = {p: cut(p, t) for p, t in params.items()}
+    out["grads"] = {p: cut(p, g) for p, g in grads.items()}
+    return out
 
 
-def dp_step_times(rcfg, mesh=None, steps=DP_TIMED_STEPS):
-    """Seconds of each of ``steps`` bf16 steps after one warm-up step, and
-    (under ``mesh``) the seconds each step spends in its gradient
-    reduction (``train_step.reduce_grads``) and in ``AdamW.apply``'s
-    ZeRO-1 all-gathers of the updated slices (``optimizer.all_gather``,
-    summed over the leaves), each call device-synced on both sides."""
+def against_one(one, world, kind):
+    """This rank's slices of the world's step against the same slices of
+    one rank's: loss, grad norm, every gradient leaf and every updated
+    param, as numbers (each bound scaled by the whole leaf's maximum)."""
+    lw, lo = world["metrics"]["loss"], one["metrics"]["loss"]
+    nw, no = world["metrics"]["grad_norm"], one["metrics"]["grad_norm"]
+    g_abs, g_ratio, g_leaf, _ = grad_errors(
+        world["grads"], one["grads"], kind,
+        {p: s[0] for p, s in one["scales"].items()})
+    p_ratio, p_leaf, widened = param_errors(
+        world["params"], one["params"], one["grads"],
+        one["metrics"]["lr"], kind, one["scales"])
+    return {"loss": lw, "loss_one": lo, "loss_err": abs(lw - lo) / abs(lo),
+            "norm": nw, "norm_one": no, "norm_err": abs(nw - no) / abs(no),
+            "g_abs": g_abs, "g_ratio": g_ratio, "g_leaf": g_leaf,
+            "p_ratio": p_ratio, "p_leaf": p_leaf, "widened": widened,
+            "lr": one["metrics"]["lr"], "leaves": len(one["grads"])}
+
+
+def step_times(rcfg, mesh=None, steps=DP_TIMED_STEPS, timed=()):
+    """Seconds of each of ``steps`` bf16 steps from a fresh init after one
+    warm-up step, as one rank of ``mesh`` (its slices over ``model``) or
+    alone, and {name: the seconds each step spends in calls to
+    ``module.name``} for each (module, name) of ``timed``, each call
+    device-synced on both sides."""
     from repro_torch.bridge import init_params
     from repro_torch.data.synthetic import synthetic_batches
     from repro_torch.models.lm import LM
-    from repro_torch.train import optimizer
     from repro_torch.train import train_step as ts
     cfg = rcfg.model
     lm = LM(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(
-        0), "cuda"), device="cuda")
+        0), "cuda", mesh=mesh, parallel=rcfg.parallel), device="cuda")
     step_fn, opt = ts.build_train_step(lm, rcfg, mesh)
     state = opt.init(lm.params, step_fn.zero)
     batches = synthetic_batches(rcfg, "cuda")
-    reduce, gather = ts.reduce_grads, optimizer.all_gather
-    spent = {"reduce": [], "gather": []}
+    spent = {name: [] for _, name in timed}
+    orig = [getattr(module, name) for module, name in timed]
 
-    def timed(fn, key):
-        def call(*a):
+    def clocked(fn, name):
+        def call(*a, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*a)
+            out = fn(*a, **kw)
             torch.cuda.synchronize()
-            spent[key][-1] += time.perf_counter() - t0
+            spent[name][-1] += time.perf_counter() - t0
             return out
         return call
 
-    ts.reduce_grads = timed(reduce, "reduce")
-    optimizer.all_gather = timed(gather, "gather")
+    for (module, name), fn in zip(timed, orig):
+        setattr(module, name, clocked(fn, name))
     times = []
     try:
         for step in range(steps + 1):
             batch = batches(step)
-            for key in spent:
-                spent[key].append(0.0)
+            for name in spent:
+                spent[name].append(0.0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, _ = step_fn(state, batch)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
     finally:
-        ts.reduce_grads, optimizer.all_gather = reduce, gather
-    return times[1:], spent["reduce"][1:], spent["gather"][1:]
+        for (module, name), fn in zip(timed, orig):
+            setattr(module, name, fn)
+    return times[1:], {name: v[1:] for name, v in spent.items()}
 
 
 def dp_resume(rcfg, work, mesh):
@@ -2741,20 +2810,6 @@ def dp_resume(rcfg, work, mesh):
             "next": float(met["loss"]), "start": start}
 
 
-def dp_against_one(one, world, kind):
-    """The world's step (metrics, params, gradients) against one rank's:
-    loss, every gradient leaf (``grad_errors``) and every updated param
-    (``param_errors``), as numbers."""
-    lw, lo = world[0]["loss"], one[0]["loss"]
-    g_abs, g_ratio, g_leaf, _ = grad_errors(world[2], one[2], kind)
-    p_ratio, p_leaf, widened = param_errors(world[1], one[1], one[2],
-                                            one[0]["lr"], kind)
-    return {"loss": lw, "loss_one": lo, "loss_err": abs(lw - lo) / abs(lo),
-            "g_abs": g_abs, "g_ratio": g_ratio, "g_leaf": g_leaf,
-            "p_ratio": p_ratio, "p_leaf": p_leaf, "widened": widened,
-            "lr": one[0]["lr"], "leaves": len(one[2])}
-
-
 def _dp_rank(rank, mesh, work):
     """One rank of the dp phase (``launch.world.spawn_world``'s target):
     (e1) with its TF32 control, the timed steps, (e2) and (e3); every
@@ -2764,6 +2819,8 @@ def _dp_rank(rank, mesh, work):
     back to the parent."""
     import torch.distributed as dist
     from repro_torch.kernels import ops
+    from repro_torch.train import optimizer
+    from repro_torch.train import train_step as ts
     from repro_torch.train.optimizer import Zero1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2771,29 +2828,31 @@ def _dp_rank(rank, mesh, work):
     out = {"backend": dist.get_backend(), "device": str(mesh.device),
            "coords": mesh.coords}
     e1 = dp_e1_run()
-    one = dp_step(e1, dp_uneven_batch(e1)) if rank == 0 else None
+    one = card_step(e1, dp_uneven_batch(e1)) if rank == 0 else None
     free_device_memory()
-    world = dp_step(e1, dp_uneven_batch(e1), mesh)
+    world = card_step(e1, dp_uneven_batch(e1), mesh)
     zero = Zero1(e1.model, mesh)
-    out["e1"] = {"metrics": world[0], "moment_bytes": world[3],
+    out["e1"] = {"metrics": world["metrics"],
+                 "moment_bytes": world["moment_bytes"],
                  "counted": sum(2 * 2 * math.prod(zero.local(p, t).shape)
-                                for p, t in world[1].items())}
+                                for p, t in world["params"].items())}
     if rank == 0:
-        out["e1"].update(dp_against_one(one, world, "dense"),
-                         one_moment_bytes=one[3])
+        out["e1"].update(against_one(one, world, "dense"),
+                         one_moment_bytes=one["moment_bytes"])
     del world
     free_device_memory()
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        tgrads = dp_step(e1, dp_uneven_batch(e1), mesh)[2]
+        tgrads = card_step(e1, dp_uneven_batch(e1), mesh)["grads"]
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     if rank == 0:
-        out["tf32"] = grad_errors(tgrads, one[2], "dense")[:3]
+        out["tf32"] = grad_errors(tgrads, one["grads"], "dense")[:3]
     del tgrads, one
     free_device_memory()
-    out["times"], out["reduce"], out["gather"] = dp_step_times(dp_e2_run(),
-                                                               mesh)
+    out["times"], spent = step_times(dp_e2_run(), mesh, timed=(
+        (ts, "reduce_grads"), (optimizer, "all_gather")))
+    out["reduce"], out["gather"] = spent["reduce_grads"], spent["all_gather"]
     free_device_memory()
     out["e2"] = dp_resume(dp_e2_run(), work, mesh)
     free_device_memory()
@@ -2801,15 +2860,15 @@ def _dp_rank(rank, mesh, work):
     drops = {}
     if rank == 0:
         with counted_drops(drops):
-            one = dp_step(e3, dp_uneven_batch(e3))
+            one = card_step(e3, dp_uneven_batch(e3))
         out["e3_one_drops"] = drops.pop("drops", 0)
     with counted_drops(drops):
-        world = dp_step(e3, dp_uneven_batch(e3), mesh)
-    out["e3"] = {"metrics": world[0], "drops": drops.get("drops", 0)}
+        world = card_step(e3, dp_uneven_batch(e3), mesh)
+    out["e3"] = {"metrics": world["metrics"], "drops": drops.get("drops", 0)}
     if rank == 0:
         # jamba's 14 Mamba2 layers of 16 carry a changed sum order deeper
         # than (e1)'s 2 dense layers: TRAIN_ATOL["dp jamba"]
-        out["e3"].update(dp_against_one(one, world, "dp jamba"))
+        out["e3"].update(against_one(one, world, "dp jamba"))
     out["launches"] = ops.launch_counts()
     return out
 
@@ -2832,7 +2891,7 @@ def dp_e3_run():
                   parallel=dict(attn_q_chunk=32, attn_kv_chunk=32))
 
 
-def param_errors(world, one, grads, lr, kind):
+def param_errors(world, one, grads, lr, kind, scales=None):
     """(worst err / bound, its leaf, entries whose bound was widened) of
     the world's updated params against one rank's. Each entry's bound is
     the gradient bound's form (TRAIN_RTOL x |p| + TRAIN_ATOL x max(1,
@@ -2840,15 +2899,17 @@ def param_errors(world, one, grads, lr, kind):
     its sign, and so the sign of AdamW's first update (at most lr in
     size), is not fixed by the gradient check, and the bound there is 2 x
     lr. A gradient of exactly 0 (an embedding row no token reads) is 0 on
-    both sides and keeps the tight bound."""
+    both sides and keeps the tight bound. ``scales``: {path: (the whole
+    leaf's largest |gradient|, largest |param|)} where the maps hold
+    slices of the leaves, else None."""
     worst, leaf, widened = 0.0, "", 0
     for path, ref in one.items():
         g = grads[path]
-        gbound = TRAIN_RTOL * g.abs() + TRAIN_ATOL[kind] * max(
-            1.0, g.abs().max().item())
+        gscale, pscale = (scales[path] if scales is not None else (
+            g.abs().max().item(), ref.abs().max().item()))
+        gbound = TRAIN_RTOL * g.abs() + TRAIN_ATOL[kind] * max(1.0, gscale)
         free = (g != 0) & (g.abs() <= gbound)
-        bound = TRAIN_RTOL * ref.abs() + TRAIN_ATOL[kind] * max(
-            1.0, ref.abs().max().item())
+        bound = TRAIN_RTOL * ref.abs() + TRAIN_ATOL[kind] * max(1.0, pscale)
         bound = torch.where(free, torch.clamp(bound, min=2 * lr), bound)
         widened += int(free.sum())
         ratio = ((world[path] - ref).abs() / bound).max().item()
@@ -2896,7 +2957,7 @@ def phase_dp(smi):
           f"{cfg.d_model}, {cfg.param_count() / 1e6:.1f} M params; a world "
           f"of {DP_WORLD} ranks on the card (launch.world.spawn_world), "
           f"global batch {DP_WORLD} at seq 512, one row a rank")
-    one_times = dp_step_times(dp_e2_run())[0]
+    one_times = step_times(dp_e2_run())[0]
     free_device_memory()
     work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     try:
@@ -3015,6 +3076,322 @@ def phase_dp(smi):
           f"{[r['launches'] for r in ranks]} in the ranks; world {world_s:.1f}"
           f" s; phase {time.perf_counter() - t0:.1f} s; {smi}")
 
+# -------------------------------------------------------------- tp-train
+def qwen3_cut(dtype):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen3-14b"),
+                               n_layers=TP_TRAIN_LAYERS, dtype=dtype)
+
+
+def tpt_f1_run():
+    return dp_run(qwen3_cut("float32"), 512, TP_TRAIN_WORLD)
+
+
+def tpt_f2_run():
+    return dp_run(qwen3_cut("bfloat16"), 512, TP_TRAIN_WORLD,
+                  learning_rate=3e-3, warmup_steps=2,
+                  total_steps=TP_TRAIN_STEPS)
+
+
+def whole_leaves_equal(grads, split, group):
+    """Whether every gradient of a leaf the ``model`` ranks hold whole is
+    equal bit for bit on every rank (all-gathered: they are the norms'
+    and a few more, small), and how many such leaves there are."""
+    from repro_torch.parallel.collectives import all_gather
+    whole = [p for p in sorted(grads) if p not in split.split]
+    n = torch.distributed.get_world_size(group)
+    for p in whole:
+        parts = all_gather(grads[p][None], 0, group)
+        if not all(torch.equal(parts[0], parts[i]) for i in range(1, n)):
+            return False, len(whole), p
+    return True, len(whole), ""
+
+
+def tpt_resume(rcfg, work, mesh):
+    """(f2) on one rank of the world: ``train_loop(mesh=)`` with a
+    preemption before step 6 (checkpoints every 4), whose replayed steps
+    4 and 5 must repeat their first losses; then the world's loss at step
+    TP_TRAIN_STEPS from the run's last checkpoint."""
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.train.loop import _start, train_loop
+    t0 = time.perf_counter()
+    pre = train_loop(rcfg, ckpt_dir=os.path.join(work, "pre"),
+                     num_steps=TP_TRAIN_STEPS, ckpt_every=4,
+                     fail_at={6: True}, mesh=mesh)
+    loop_s = time.perf_counter() - t0
+    state, start, step_fn = _start(rcfg, os.path.join(work, "pre"),
+                                   mesh.device, mesh)
+    _, met = step_fn(state, synthetic_batches(rcfg, mesh=mesh)(start))
+    return {"pre": pre.losses, "restarts": pre.restarts,
+            "next": float(met["loss"]), "start": start, "loop_s": loop_s}
+
+
+def _tpt_rank(rank, mesh, work):
+    """One rank of the tp-train phase (``launch.world.spawn_world``'s
+    target at (model TP_TRAIN_WORLD)): (f1) with its TF32 control, the
+    timed steps, (f2) and (f3); every launch counter set to 0 just before
+    and read just after. Each rank takes (f1)'s one-rank step in turn,
+    alone on the card, and keeps its slices of it; rank 0 takes (f3)'s.
+    Only numbers go back to the parent."""
+    import torch.distributed as dist
+    from repro_torch.bridge import ModelSplit, meta_params
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.check import bytes_held
+    from repro_torch.parallel.collectives import all_reduce
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launch_counts()
+    group = mesh.group("model")
+    out = {"backend": dist.get_backend(), "device": str(mesh.device),
+           "coords": mesh.coords}
+    # (f1)
+    f1 = tpt_f1_run()
+    split = ModelSplit(f1.model, mesh, f1.parallel)
+    batch = synthetic_batches(f1, "cuda")(0)
+    one = None
+    for r in range(TP_TRAIN_WORLD):        # one rank at a time on the card
+        if r == rank:
+            one = card_step(f1, batch, split=split)
+            free_device_memory()
+        dist.barrier()
+    world = card_step(f1, batch, mesh)
+    torch.cuda.synchronize()
+    out["f1"] = against_one(one, world, "dense")
+    out["f1"].update(
+        held=world["held"], counted=bytes_held(meta_params(
+            f1.model, mesh=mesh, parallel=f1.parallel)),
+        whole=bytes_held(meta_params(f1.model)), one_held=one["held"],
+        metrics=world["metrics"], split=len(split.split))
+    same, n_whole, bad = whole_leaves_equal(world["grads"], split, group)
+    out["f1"].update(whole_equal=same, n_whole=n_whole, unequal=bad)
+    del world
+    free_device_memory()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tgrads = card_step(f1, batch, mesh)["grads"]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ratio = grad_errors(tgrads, one["grads"], "dense",
+                        {p: s[0] for p, s in one["scales"].items()})[1]
+    # the control's worst over the ranks
+    out["tf32"] = float(all_reduce(torch.tensor(ratio), group,
+                                   dist.ReduceOp.MAX))
+    del tgrads, one
+    free_device_memory()
+    # (f2)
+    out["times"], spent = step_times(tpt_f2_run(), mesh, TP_TIMED_STEPS, (
+        (collectives, "all_reduce"), (collectives, "all_gather")))
+    out["coll"] = [a + b for a, b in zip(spent["all_reduce"],
+                                         spent["all_gather"])]
+    free_device_memory()
+    out["f2"] = tpt_resume(tpt_f2_run(), work, mesh)
+    free_device_memory()
+    # (f3): the dp phase's (e3) run, jamba smoke at capacity factor 0.5
+    f3 = dp_e3_run()
+    fsplit = ModelSplit(f3.model, mesh, f3.parallel)
+    batch = synthetic_batches(f3, "cuda")(0)
+    drops = {}
+    one = None
+    if rank == 0:
+        with counted_drops(drops):
+            one = card_step(f3, batch)
+        out["f3_one_drops"] = drops.pop("drops", 0)
+    with counted_drops(drops):
+        world = card_step(f3, batch, mesh)
+    grads = dict(tree_leaves(fsplit.gather_tree(world["grads"])))
+    params = dict(tree_leaves(fsplit.gather_tree(world["params"])))
+    out["f3"] = {"drops": drops.get("drops", 0), "metrics": world["metrics"],
+                 "split": len(fsplit.split)}
+    if rank == 0:
+        out["f3"].update(against_one(
+            one, dict(world, grads=grads, params=params), "deep ssm"))
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def phase_tp_train(smi):
+    """Training under the ``model`` axis (``train.train_step`` on a
+    (model TP_TRAIN_WORLD) mesh) on a world of gloo ranks on the card
+    against one rank: (f1)-(f3) of the module docstring. Every launch
+    counter is set to 0 just before and read just after, here and in
+    every rank: the training route reaches no kernel."""
+    import shutil
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.world import spawn_world
+    from repro_torch.train.loop import _start
+    check(not torch.backends.cuda.matmul.allow_tf32, "tp-train: TF32 is on")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    f1r = tpt_f1_run()
+    cfg = f1r.model
+    phase("tp-train", "setup", f"{cfg.name}: {cfg.n_layers} of 40 layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_count() / 1e9:.3f} B params; a world of "
+          f"{TP_TRAIN_WORLD} ranks on the card at (model {TP_TRAIN_WORLD}) "
+          f"(launch.world.spawn_world), seq {f1r.shape.seq_len}, global "
+          f"batch {f1r.shape.global_batch}, every row on every rank")
+    one_times = step_times(tpt_f2_run(), steps=TP_TIMED_STEPS)[0]
+    free_device_memory()
+    work = tempfile.mkdtemp(prefix="chip_smoke_tpt_")
+    try:
+        t1 = time.perf_counter()
+        ranks = spawn_world(TP_TRAIN_WORLD, _tpt_rank, work,
+                            devices=["cuda:0"] * TP_TRAIN_WORLD,
+                            model=TP_TRAIN_WORLD)
+        world_s = time.perf_counter() - t1
+        r0 = ranks[0]
+        # (f1): the readings first, so a failing run shows them all
+        f1s = [r["f1"] for r in ranks]
+        worst = max(f1s, key=lambda f: f["g_ratio"])
+        pworst = max(f1s, key=lambda f: f["p_ratio"])
+        f1 = r0["f1"]
+        phase("tp-train", "f1", f"fp32: loss {TP_TRAIN_WORLD} ranks "
+              f"{f1['loss']:.6f} vs one {f1['loss_one']:.6f} (rel err "
+              f"{f1['loss_err']:.3e}, tol {TRAIN_LOSS_RTOL}); grad norm "
+              f"{f1['norm']:.6f} vs {f1['norm_one']:.6f} (rel err "
+              f"{f1['norm_err']:.3e}, tol {TRAIN_RTOL}: the leaves' bound); "
+              f"{f1['leaves']} gradient leaves, "
+              f"{f1['split']} split: worst abs err "
+              f"{max(f['g_abs'] for f in f1s):.3e}, worst err / bound "
+              f"{worst['g_ratio']:.3f} ({worst['g_leaf']}; rtol {TRAIN_RTOL}"
+              f", atol {TRAIN_ATOL['dense']} x max(1, leaf max)); updated "
+              f"params: worst err / bound {pworst['p_ratio']:.3f} "
+              f"({pworst['p_leaf']}; "
+              f"{sum(f['widened'] for f in f1s)} entries held to 2 x lr); "
+              f"the {f1['n_whole']} leaves every rank holds whole: "
+              + ("gradients equal bit for bit on the ranks" if all(
+                  f["whole_equal"] for f in f1s) else "gradients differ on "
+                 "the ranks (" + ", ".join(f["unequal"] for f in f1s) + ")")
+              + f"; {smi}")
+        for r in ranks:
+            f1 = r["f1"]
+            check(f1["metrics"] == r0["f1"]["metrics"],
+                  f"tp-train f1: ranks' metrics differ: {f1['metrics']} vs "
+                  f"{r0['f1']['metrics']}")
+            check(math.isfinite(f1["loss"])
+                  and f1["loss_err"] <= TRAIN_LOSS_RTOL,
+                  f"tp-train f1: loss {f1['loss']!r} vs one "
+                  f"{f1['loss_one']!r}, rel err {f1['loss_err']:.3e} > "
+                  f"{TRAIN_LOSS_RTOL}")
+            check(f1["norm_err"] <= TRAIN_RTOL, f"tp-train f1: grad norm "
+                  f"{f1['norm']!r} vs one {f1['norm_one']!r}, rel err "
+                  f"{f1['norm_err']:.3e} > {TRAIN_RTOL}")
+            check(f1["g_ratio"] <= 1.0, f"tp-train f1: rank {r['coords']}: "
+                  f"gradient {f1['g_leaf']} off by {f1['g_ratio']:.2f} x its "
+                  "bound")
+            check(f1["p_ratio"] <= 1.0, f"tp-train f1: rank {r['coords']}: "
+                  f"updated param {f1['p_leaf']} off by {f1['p_ratio']:.2f} "
+                  "x its bound")
+            check(f1["whole_equal"], f"tp-train f1: the gradient of "
+                  f"{f1['unequal']}, held whole by every rank, differs "
+                  "between the ranks")
+        phase("tp-train", "f1", "bytes a rank: params "
+              + ", ".join(f"{r['f1']['held']}" for r in ranks)
+              + f" B measured (memory_allocated), {f1['counted']} B counted "
+              f"(meta_params), whole {f1['whole']} B counted, "
+              f"{f1['one_held']} B measured on one rank "
+              f"({f1['counted'] / f1['whole']:.4f} of the whole)")
+        check(all(abs(r["f1"]["held"] - f1["counted"])
+                  <= 0.01 * f1["counted"] for r in ranks),
+              f"tp-train f1: a rank's params take "
+              f"{[r['f1']['held'] for r in ranks]} B, counted "
+              f"{f1['counted']} B")
+        phase("tp-train", "f1", f"control, TF32 products in the world: "
+              f"worst err / bound {r0['tf32']:.3f}, must exceed "
+              f"{TF32_CONTROL_MIN}")
+        check(r0["tf32"] > TF32_CONTROL_MIN, f"tp-train f1: with TF32 on, "
+              f"the world's gradients land at {r0['tf32']:.3f} of the "
+              "bound: the bound cannot tell TF32 from fp32")
+        for r in ranks:
+            med = statistics.median(r["times"])
+            col = statistics.median(r["coll"])
+            phase("tp-train", "time", f"rank {r['coords']} ({r['backend']}, "
+                  f"{r['device']}): bf16 step median {med:.4f} s (of "
+                  f"{', '.join(f'{x:.4f}' for x in r['times'])}), model "
+                  f"collectives median {col:.4f} s = {col / med:.1%} of the "
+                  f"step; one rank at the same batch "
+                  f"{statistics.median(one_times):.4f} s (of "
+                  f"{', '.join(f'{x:.4f}' for x in one_times)}); {smi}")
+        # (f2)
+        f2 = r0["f2"]
+        for r in ranks:
+            check(r["f2"]["pre"] == f2["pre"] and r["f2"]["next"]
+                  == f2["next"], "tp-train f2: the ranks' losses differ")
+        pre = f2["pre"]
+        check(f2["restarts"] == 1 and len(pre) == TP_TRAIN_STEPS + 2,
+              f"tp-train f2: {f2['restarts']} restarts, {len(pre)} losses")
+        check(pre[6:8] == pre[4:6], f"tp-train f2: the steps replayed after "
+              f"the preemption give {pre[6:8]}, first {pre[4:6]}")
+        f2r = tpt_f2_run()
+        state, start, step_fn = _start(f2r, os.path.join(work, "pre"),
+                                       "cuda")
+        _, met = step_fn(state, synthetic_batches(f2r, "cuda")(start))
+        one_next = float(met["loss"])
+        del state, step_fn
+        free_device_memory()
+        next_err = abs(one_next - f2["next"]) / abs(f2["next"])
+        check(start == f2["start"] == TP_TRAIN_STEPS
+              and next_err <= DP_NEXT_RTOL,
+              f"tp-train f2: step {start}'s loss on one rank from the "
+              f"world's checkpoint {one_next!r} vs the world's "
+              f"{f2['next']!r}, rel err {next_err:.3e} > {DP_NEXT_RTOL}")
+        phase("tp-train", "f2", f"bf16 train_loop(mesh=): {TP_TRAIN_STEPS} "
+              f"steps with checkpoints every 4 and a preemption before step "
+              f"6: {f2['restarts']} restart, steps 4-5 replayed bit for bit "
+              f"({len(pre)} losses); step {start} from its last checkpoint "
+              f"on one rank {one_next:.6f} vs the world {f2['next']:.6f} "
+              f"(rel err {next_err:.3e}, tol {DP_NEXT_RTOL}); losses "
+              + ", ".join(f"{x:.4f}" for x in pre)
+              + f"; the loop {f2['loop_s']:.1f} s; {smi}")
+        # (f3)
+        f3 = r0["f3"]
+        check(r0["f3_one_drops"] > 0, "tp-train f3: capacity factor "
+              f"{DP_CAPACITY_FACTOR} drops no assignment")
+        check(all(r["f3"]["drops"] == r0["f3_one_drops"] for r in ranks),
+              f"tp-train f3: the ranks dropped "
+              f"{[r['f3']['drops'] for r in ranks]} assignments, one rank "
+              f"{r0['f3_one_drops']}: at data 1 each rank fills every row")
+        check(f3["loss_err"] <= TRAIN_LOSS_RTOL, f"tp-train f3: loss "
+              f"{f3['loss']!r} vs one {f3['loss_one']!r}, rel err "
+              f"{f3['loss_err']:.3e}")
+        check(f3["norm_err"] <= TRAIN_RTOL, f"tp-train f3: grad norm "
+              f"{f3['norm']!r} vs {f3['norm_one']!r}, rel err "
+              f"{f3['norm_err']:.3e} > {TRAIN_RTOL}")
+        check(f3["g_ratio"] <= 1.0, f"tp-train f3: gradient {f3['g_leaf']} "
+              f"off by {f3['g_ratio']:.2f} x its bound")
+        check(f3["p_ratio"] <= 1.0, f"tp-train f3: param {f3['p_leaf']} off "
+              f"by {f3['p_ratio']:.2f} x its bound")
+        phase("tp-train", "f3", f"{dp_e3_run().model.name}, fp32, capacity "
+              f"factor {DP_CAPACITY_FACTOR}, {f3['split']} leaves split "
+              f"(attention, Mamba2 heads, experts): {r0['f3_one_drops']} "
+              f"assignments dropped on one rank, "
+              f"{[r['f3']['drops'] for r in ranks]} on the world's ranks "
+              f"(each fills every row); loss "
+              f"{f3['loss']:.6f} vs {f3['loss_one']:.6f} (rel err "
+              f"{f3['loss_err']:.3e}), grad norm rel err "
+              f"{f3['norm_err']:.3e}; {f3['leaves']} gradient leaves, worst "
+              f"abs err {f3['g_abs']:.3e}, worst err / bound "
+              f"{f3['g_ratio']:.3f} ({f3['g_leaf']}; atol "
+              f"{TRAIN_ATOL['deep ssm']} x max(1, leaf max)); params "
+              f"{f3['p_ratio']:.3f} ({f3['p_leaf']})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    counts = ops.launch_counts()
+    for r in ranks:
+        check(not any(r["launches"].values()), f"tp-train: rank "
+              f"{r['coords']} launched kernels {r['launches']}")
+    check(not any(counts.values()), f"tp-train: kernel launches {counts}: "
+          "the training route must reach no kernel")
+    phase("tp-train", "done", f"launches {counts} here and "
+          f"{[r['launches'] for r in ranks]} in the ranks; world "
+          f"{world_s:.1f} s; phase {time.perf_counter() - t0:.1f} s; {smi}")
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -3064,6 +3441,8 @@ def main():
     phase_elastic(smi)
     free_device_memory()
     phase_dp(smi)
+    free_device_memory()
+    phase_tp_train(smi)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,15 @@ public API (``examples/quickstart.py`` on ``repro_torch``).
 
 config -> model -> fault-tolerant training loop (checkpoints and
 auto-resume) -> the loss curve, on the card (or the CPU with ``--device
-cpu``), on one rank or data-parallel over ``--data`` ranks: gloo on the
-CPU or where ranks share a card, NCCL with a card a rank. The model is a
+cpu``), on one rank, data-parallel over ``--data`` ranks, split over
+``--model-axis`` ranks (heads, MLP, vocab), or both: gloo on the CPU or
+where ranks share a card, NCCL with a card a rank. The model is a
 reduced granite-family decoder; ``--preset 100m`` is a ~100M-parameter
 run on the same path.
 
   PYTHONPATH=src python examples/quickstart_torch.py --steps 60
   PYTHONPATH=src python examples/quickstart_torch.py --device cpu --data 2
+  PYTHONPATH=src python examples/quickstart_torch.py --device cpu --model-axis 2
   PYTHONPATH=src python examples/quickstart_torch.py --preset 100m --steps 300
 """
 from __future__ import annotations
@@ -36,7 +38,8 @@ PRESETS = {
 
 
 def _rank(rank, mesh, rcfg, steps, ckpt_dir):
-    """One rank of ``--data N``: the loop on the rank's rows."""
+    """One rank of ``--data N --model-axis M``: the loop on the rank's
+    rows and slices."""
     return train_loop(rcfg, ckpt_dir=ckpt_dir, num_steps=steps,
                       ckpt_every=max(steps // 4, 1), mesh=mesh)
 
@@ -52,7 +55,10 @@ def main(argv=None):
                     help="default: the card; 'cpu' runs on the CPU")
     ap.add_argument("--data", type=int, default=1,
                     help="data-parallel ranks (the batch must divide)")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="ranks the model splits over")
     args = ap.parse_args(argv)
+    world = args.data * args.model_axis
 
     device = resolve_device(args.device)
     cfg = dataclasses.replace(get_config("granite-3-8b"),
@@ -65,13 +71,14 @@ def main(argv=None):
                      learning_rate=1e-3, warmup_steps=10,
                      total_steps=args.steps)
     print(f"model: {cfg.param_count()/1e6:.1f}M params, "
-          f"{shape.tokens} tokens/step, {args.data} rank(s) on {device}")
+          f"{shape.tokens} tokens/step, {world} rank(s) on {device} "
+          f"(data {args.data}, model {args.model_axis})")
     ckpt_dir = args.ckpt_dir or os.path.join(tempfile.gettempdir(),
                                              "repro_torch-quickstart")
-    if args.data > 1:
-        devices = [str(device)] * args.data if device.type == "cpu" else None
-        report = spawn_world(args.data, _rank, rcfg, args.steps, ckpt_dir,
-                             devices=devices)[0]
+    if world > 1:
+        devices = [str(device)] * world if device.type == "cpu" else None
+        report = spawn_world(world, _rank, rcfg, args.steps, ckpt_dir,
+                             devices=devices, model=args.model_axis)[0]
     else:
         report = train_loop(rcfg, ckpt_dir=ckpt_dir, num_steps=args.steps,
                             ckpt_every=max(args.steps // 4, 1),

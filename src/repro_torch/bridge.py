@@ -17,7 +17,9 @@ each leaf that serving splits over the ``model`` axis (``shard_leaf``):
 the MoE experts, and the heads, MLP, vocab and Mamba2 leaves that
 ``parallel.tensor.tensor_plan`` splits. ``init_params`` still draws the
 whole stream, so a sharded model's weights are exactly the slices of the
-single-rank model's.
+single-rank model's. Training under the ``model`` axis holds the same
+slices: ``ModelSplit`` takes a rank's slices of whole leaves (a
+checkpoint's, the moments) and joins them back into whole arrays.
 """
 from __future__ import annotations
 
@@ -26,10 +28,11 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.models.lm import DTYPES, resolve_device
+from repro_torch.models.lm import DTYPES, resolve_device, tree_leaves
+from repro_torch.parallel.collectives import all_gather
 from repro_torch.parallel.sharding import AXIS_MODEL, resolve_spec
 from repro_torch.parallel.tensor import TensorParallel, tensor_plan
-from repro_torch.train.optimizer import TrainState
+from repro_torch.train.optimizer import TrainState, unflatten
 
 # A leaf whose fp32 draw would exceed this is drawn in slices along its
 # leading (layer, expert) axes, straight into the leaf: arctic's stacked
@@ -158,6 +161,49 @@ def shard_leaf(path: str, shape, mesh, tp: TensorParallel):
     if not split:
         return None
     return (dim,) + tp.part(shape[dim])
+
+
+class ModelSplit:
+    """This rank's slices of a model's param leaves under ``mesh``'s
+    ``model`` axis, for training: the leaves and cuts ``shard_leaf`` gives
+    under ``tensor_plan(cfg, mesh, parallel)``, as serving splits them.
+
+    ``cuts[path]`` is (dim, start, stop) of the rank's slice, or None for
+    a leaf every rank holds whole; ``split`` the paths of the cut leaves;
+    ``tp`` the rank's ``TensorParallel``. ``slice_tree`` takes the rank's
+    slices of whole leaves (the optimizer's moments and params share the
+    layout), and ``gather_tree`` joins the ranks' slices into whole
+    leaves over ``model`` (a collective: every rank calls it, in the same
+    order), so the JAX package's whole arrays go in and come back out."""
+
+    def __init__(self, cfg, mesh, parallel=None):
+        self.tp = tensor_plan(cfg, mesh, parallel)
+        self.cuts = {path: shard_leaf(path, t.shape, mesh, self.tp)
+                     for path, t in tree_leaves(meta_params(cfg))}
+        self.split = frozenset(p for p, cut in self.cuts.items() if cut)
+
+    def local(self, path: str, t):
+        """This rank's slice of the whole leaf ``t`` at ``path`` (a view),
+        or ``t`` itself."""
+        cut = self.cuts[path]
+        return t if cut is None else t.narrow(cut[0], cut[1], cut[2] - cut[1])
+
+    def slice_tree(self, tree):
+        """Each whole leaf's slice, as its own tensor."""
+        paths, leaves = zip(*tree_leaves(tree))
+        return unflatten(paths, [t if self.cuts[p] is None
+                                 else self.local(p, t).clone()
+                                 for p, t in zip(paths, leaves)])
+
+    def gather_tree(self, tree, device=None):
+        """The whole leaves of a tree of this rank's slices, on ``device``
+        (None: each slice's; a checkpoint gathers to the host)."""
+        paths, leaves = zip(*tree_leaves(tree))
+        return unflatten(paths, [
+            (t if device is None else t.to(device)) if self.cuts[p] is None
+            else all_gather(t.detach(), self.cuts[p][0], self.tp.group,
+                            device)
+            for p, t in zip(paths, leaves)])
 
 
 def _spec(shape, law="fan_in", scale=1.0, dtype=None):

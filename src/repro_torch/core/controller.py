@@ -36,7 +36,9 @@ runs each segment as a world of one rank a slot
 (``launch.world.spawn_world``): every rank restores the job's newest
 checkpoint, runs the tick's steps data-parallel on its rows
 (``train.train_step``) and joins the save, and the losses come back to
-this process.
+this process. A segment's world is data-only (``(data n)``, one slot a
+rank): the controller grants slots as nodes of the data axis, and never
+splits a model over ``model``, which ``train_loop(mesh=)`` can.
 """
 from __future__ import annotations
 

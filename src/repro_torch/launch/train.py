@@ -4,9 +4,10 @@ Runs the fault-tolerant loop (``train.loop``) on the card, or on the CPU
 with ``--device cpu``, with the flags of ``repro.launch.train``. ``--data
 N`` trains data-parallel on a world of N ranks (``launch.world.
 spawn_world``: gloo on the CPU or when ranks share a card, NCCL with a
-card a rank); ``--data 0``, the default, means one rank per local card,
-or 1 on the CPU. ``--model-axis`` other than 1 raises: training under
-the ``model`` axis is ROADMAP queue 3. With ``--smoke`` (the default) the
+card a rank); ``--model-axis M`` splits the model over M ranks of the
+``model`` axis as well (heads, MLPs, vocab, Mamba2 heads, experts), on a
+world of N x M ranks. ``--data 0``, the default, means the local cards
+over M (at least 1), or 1 on the CPU. With ``--smoke`` (the default) the
 reduced config trains at sequence 64, batch 8; ``--full`` takes the
 published config at ``--shape``. A run resumes from the newest
 checkpoint under ``--ckpt-dir``.
@@ -28,7 +29,8 @@ from repro_torch.train.loop import train_loop
 
 
 def _rank(rank, mesh, rcfg, args):
-    """One rank of ``--data N``: the loop on the rank's rows."""
+    """One rank of ``--data N --model-axis M``: the loop on the rank's
+    rows and slices."""
     return train_loop(rcfg, ckpt_dir=args.ckpt_dir, num_steps=args.steps,
                       ckpt_every=args.ckpt_every, mesh=mesh)
 
@@ -46,15 +48,14 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs on the CPU")
     ap.add_argument("--data", type=int, default=0,
-                    help="data-axis size (0 = one rank per local card, 1 on "
-                         "the CPU)")
-    ap.add_argument("--model-axis", type=int, default=1)
+                    help="data-axis size (0 = the local cards over the "
+                         "model axis, 1 on the CPU)")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="ranks the model splits over")
     args = ap.parse_args(argv)
 
-    if args.model_axis != 1:
-        raise ValueError(f"--model-axis {args.model_axis}: the port trains "
-                         "data-parallel only; training under the model axis "
-                         "is ROADMAP queue 3")
+    if args.model_axis < 1:
+        raise ValueError(f"--model-axis {args.model_axis}: at least 1")
     device = resolve_device(args.device)
     if args.smoke:
         cfg = get_smoke_config(args.arch)
@@ -66,13 +67,16 @@ def main(argv=None):
         parallel = ParallelConfig()
     rcfg = RunConfig(model=cfg, shape=shape, parallel=parallel,
                      total_steps=args.steps)
-    data = args.data or (torch.cuda.device_count() if device.type == "cuda"
-                         else 1)
+    model = args.model_axis
+    data = args.data or (max(1, torch.cuda.device_count() // model)
+                         if device.type == "cuda" else 1)
     print(f"arch={args.arch} params={cfg.param_count() / 1e6:.1f}M "
-          f"device={device} data={data}")
-    if data > 1:
-        devices = ([str(device)] * data if device.type == "cpu" else None)
-        report = spawn_world(data, _rank, rcfg, args, devices=devices)[0]
+          f"device={device} data={data} model={model}")
+    if data * model > 1:
+        world = data * model
+        devices = ([str(device)] * world if device.type == "cpu" else None)
+        report = spawn_world(world, _rank, rcfg, args, devices=devices,
+                             model=model)[0]
     else:
         report = train_loop(rcfg, ckpt_dir=args.ckpt_dir,
                             num_steps=args.steps,

@@ -3,8 +3,9 @@
 The reference needs no processes: one JAX program drives every device of
 its mesh. The port's ranks are processes joined by ``torch.distributed``,
 so this module has no counterpart in the JAX package. It is the one way
-the port's data-parallel paths start a world: the launcher's ``--data``,
-the controller's segments across distinct devices and the tests.
+the port's training paths start a world: the launcher's ``--data`` and
+``--model-axis``, the controller's segments across distinct devices and
+the tests.
 
 ``spawn_world`` runs ``fn(rank, mesh, *args)`` in n processes through
 ``torch.multiprocessing.spawn`` and returns each rank's result, in rank
@@ -56,7 +57,7 @@ def _cpu_result(x):
     return x
 
 
-def _rank_main(rank, n, fn, args, devices, store, out, threads):
+def _rank_main(rank, n, fn, args, devices, store, out, threads, model):
     from repro_torch.launch.mesh import make_mesh
     device = rank_device(devices[rank])
     if device.type == "cpu":
@@ -66,7 +67,7 @@ def _rank_main(rank, n, fn, args, devices, store, out, threads):
     dist.init_process_group(backend_for(devices), init_method=f"file://{store}",
                             rank=rank, world_size=n)
     try:
-        mesh = make_mesh(n, 1, 1, device=device)
+        mesh = make_mesh(n // model, model, device=device)
         result = fn(rank, mesh, *args)
         torch.save(_cpu_result(result), os.path.join(out, f"rank{rank}.pt"))
         dist.barrier()
@@ -74,14 +75,17 @@ def _rank_main(rank, n, fn, args, devices, store, out, threads):
         dist.destroy_process_group()
 
 
-def spawn_world(n: int, fn, *args, devices=None) -> list:
+def spawn_world(n: int, fn, *args, devices=None, model: int = 1) -> list:
     """Run ``fn(rank, mesh, *args)`` on n ranks and return their results.
 
     ``devices``: one per rank (``"cpu"``, ``"cpu:1"``, ``"cuda:0"``, ...);
     None gives rank r the card r modulo the cards, and raises without
-    one. The mesh is ``data`` n, built by ``launch.mesh.make_mesh`` on
-    each rank's device; a caller that needs another layout builds it
-    inside ``fn``."""
+    one. The mesh is (``data`` n / model, ``model`` model), built by
+    ``launch.mesh.make_mesh`` on each rank's device; a caller that needs
+    another layout builds it inside ``fn``."""
+    if model < 1 or n % model:
+        raise ValueError(f"spawn_world: {n} ranks do not divide into a "
+                         f"model axis of {model}")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("spawn_world: no CUDA device; pass devices="
@@ -95,7 +99,8 @@ def spawn_world(n: int, fn, *args, devices=None) -> list:
     try:
         torch.multiprocessing.spawn(
             _rank_main, args=(n, fn, args, devices,
-                              os.path.join(work, "store"), work, threads),
+                              os.path.join(work, "store"), work, threads,
+                              model),
             nprocs=n, join=True)
         return [torch.load(os.path.join(work, f"rank{r}.pt"),
                            weights_only=False) for r in range(n)]

@@ -25,7 +25,8 @@ shared experts' partial joins the experts' before their one reduction.
 
 Training runs ``block_train``: the same blocks over the whole sequence
 with no cache, through plain tensor ops only (``chunked_attention``,
-``ssd_chunked``, ``moe_train``), since the kernels are forward-only.
+``ssd_chunked``, ``moe_train``), since the kernels are forward-only, on
+one rank or split over ``model`` as serving splits them.
 """
 from __future__ import annotations
 
@@ -179,7 +180,7 @@ def _ffn(p, cfg, x, i: int, moe_fn, tp=WHOLE, data=None):
         partial = None
         for key, width in widths.items():
             if tp.mlp(width):
-                out = mlp_apply(p[key], h, cfg.mlp_act)
+                out = mlp_apply(p[key], tp.enter(h), cfg.mlp_act)
                 partial = out if partial is None else partial + out
         y = (moe_fn(p["moe"], cfg, h, ids, wts) if partial is None
              else moe_fn(p["moe"], cfg, h, ids, wts, partial=partial))
@@ -189,28 +190,46 @@ def _ffn(p, cfg, x, i: int, moe_fn, tp=WHOLE, data=None):
         x = x + y
     elif cfg.d_ff > 0:
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        y = mlp_apply(p["mlp"], h, cfg.mlp_act)
-        x = x + (tp.reduce(y) if tp.mlp(cfg.d_ff) else y)
+        if tp.mlp(cfg.d_ff):
+            x = x + tp.reduce(mlp_apply(p["mlp"], tp.enter(h), cfg.mlp_act))
+        else:
+            x = x + mlp_apply(p["mlp"], h, cfg.mlp_act)
     return x, aux
 
 
-def block_train(p, cfg, parallel, x, positions, i: int, data=None):
+def block_train(p, cfg, parallel, x, positions, i: int, data=None,
+                tp=WHOLE):
     """The training route of block ``i`` over whole sequences, no cache:
     attention through ``chunked_attention`` with the KV heads repeated
     (chunks and ``impl`` from ``parallel``), Mamba2 through
     ``ssd_chunked``, MoE through ``moe_train``. Returns (x, aux losses).
     ``data``: the group of the ranks that hold the batch's other rows, or
-    None (``models.lm.LM.loss``); only the MoE layer reads it."""
+    None (``models.lm.LM.loss``); only the MoE layer reads it.
+
+    ``tp``: this rank's split over ``model`` (``parallel.tensor``), as
+    ``block_apply`` splits a layer when serving: a rank attends with its
+    heads, runs its MLP columns, Mamba2 heads and experts, and the
+    row-parallel products sum over ``model``; what enters the split passes
+    through ``TensorParallel.enter``, so every gradient is whole or the
+    rank's slice."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if cfg.block_kind(i) == "attn":
         B, S, _ = h.shape
-        q, k, v = qkv_proj(p["attn"], cfg, h, positions)
+        pa, H = p["attn"], tp.heads(cfg)
+        if tp.attn:
+            h = tp.enter(h)
+            if cfg.qk_norm:   # whole scales, read by this rank's heads
+                pa = dict(pa, q_norm=tp.enter(pa["q_norm"]),
+                          k_norm=tp.enter(pa["k_norm"]))
+        q, k, v = qkv_proj(pa, cfg, h, positions, (H, tp.kv_heads(cfg)))
         o = chunked_attention(
-            q, repeat_kv(k, cfg.n_heads), repeat_kv(v, cfg.n_heads),
+            q, repeat_kv(k, H), repeat_kv(v, H),
             causal=True, q_chunk=parallel.attn_q_chunk,
             kv_chunk=parallel.attn_kv_chunk, impl=parallel.attn_impl)
-        out = o.reshape(B, S, cfg.q_dim) @ p["attn"]["wo"]
+        out = o.reshape(B, S, H * cfg.head_dim) @ pa["wo"]
+        if tp.attn:
+            out = tp.reduce(out)
     else:
-        out, _ = mamba_apply(p["mamba"], cfg, h, train=True)
-    return _ffn(p, cfg, x + out, i, functools.partial(moe_train, data=data),
-                data=data)
+        out, _ = mamba_apply(p["mamba"], cfg, h, train=True, tp=tp)
+    return _ffn(p, cfg, x + out, i,
+                functools.partial(moe_train, data=data, tp=tp), tp, data)

@@ -19,7 +19,8 @@ and Mamba2 heads (``Runtime.tensor``). Training (``loss``) runs the
 blocks' plain training route under
 autograd, each pattern repeat under ``torch.utils.checkpoint`` unless
 ``remat == "none"``: the counterpart of the reference's ``jax.checkpoint``
-with ``nothing_saveable`` around its scan body.
+with ``nothing_saveable`` around its scan body; with a ``Runtime`` it
+trains as one rank of its mesh under the same split.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -244,17 +246,18 @@ class LM(nn.Module):
         return tp.gather(out, -1) if tp.vocab else out
 
     # ------------------------------------------------------------- train
-    def backbone(self, x, positions, parallel: ParallelConfig, data=None):
+    def backbone(self, x, positions, parallel: ParallelConfig, data=None,
+                 tp: TensorParallel = WHOLE):
         """Training forward of (B, S, d) through every layer: returns (x,
         {"moe_lb_loss", "moe_z_loss"} fp32 sums over the layers). The
         stacked leaves are sliced inside the graph on every call.
-        ``data``: as in ``loss``."""
+        ``data`` and ``tp``: as in ``loss``."""
         cfg = self.cfg
 
         def repeat(x, lb, z, layer):
             for i in range(self.period):
                 x, aux = block_train(layer[i], cfg, parallel, x, positions,
-                                     i, data)
+                                     i, data, tp)
                 if aux:
                     lb = lb + aux["moe_lb_loss"]
                     z = z + aux["moe_z_loss"]
@@ -271,7 +274,7 @@ class LM(nn.Module):
         return x, {"moe_lb_loss": lb, "moe_z_loss": z}
 
     def loss(self, batch, parallel: ParallelConfig | None = None,
-             data=None):
+             data=None, *, rt: Runtime | None = None):
         """batch: tokens, targets (B, S[, ncb]) int, mask (B, S) f32,
         optional patches (B, Np, d), on the LM's device. Returns (loss,
         metrics): loss = CE + 0.01 * load-balance + 1e-3 * router z loss,
@@ -291,21 +294,41 @@ class LM(nn.Module):
         reference's loss and metrics over the global batch, and their
         gradients, summed, its gradients. Under remat the MoE layers'
         collectives run again in the backward, on every rank in the same
-        order, and give the same counts."""
+        order, and give the same counts.
+
+        ``rt``: the runtime whose mesh this rank trains on; where its
+        ``model`` axis holds n > 1 ranks, the params are this rank's
+        slices (``Runtime.tensor``: heads, MLP columns, vocab rows, Mamba2
+        heads and experts, as serving splits them) and the loss is
+        computed across the ``model`` ranks under autograd
+        (``parallel.tensor``): each rank returns the same loss, and the
+        gradients of its slices are theirs of that loss, the whole
+        leaves' whole. Under a vocab split the cross entropy is the
+        reference's full-vocab ``logsumexp`` and target logit from
+        per-rank statistics: the row maxima (all-reduced MAX), then the
+        sums of exponentials and the target logits in one SUM, so no rank
+        holds the (tokens, vocab) logits. ``data`` then groups the ranks
+        of this rank's ``model`` index. Under remat the ``model``
+        collectives of each pattern repeat also run again in the
+        backward, on every rank in the same order."""
         cfg = self.cfg
-        x = self.embed(batch)
+        tp = rt.tensor(cfg) if rt is not None else WHOLE
+        x = self.embed(batch, rt)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
         x, aux = self.backbone(x, positions, parallel or ParallelConfig(),
-                               data)
+                               data, tp)
         x = rmsnorm(self.params["final_norm"], x, cfg.norm_eps)
         if cfg.vision_stub and "patches" in batch:
             x = x[:, batch["patches"].shape[1]:]  # loss on text positions
-        logits = self.logits(x).float()
         targets = batch["targets"].to(self.device).long()
         mask = batch["mask"].to(self.device, torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+        if tp.vocab:
+            lse, tgt = self._split_vocab_ce(tp.enter(x), targets, tp)
+        else:
+            logits = self.logits(x).float()
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
         ce = lse - tgt                                    # (B, S[, ncb])
         if cfg.n_codebooks > 1:
             ce = ce.mean(dim=-1)
@@ -320,6 +343,24 @@ class LM(nn.Module):
         metrics = {"ce": ce_loss, **aux,
                    "z": (lse.square() * mask).sum() / denom}
         return loss, {k: v.detach() for k, v in metrics.items()}
+
+    def _split_vocab_ce(self, x, targets, tp: TensorParallel):
+        """(lse, target logit), each (B, S[, ncb]) fp32, over the whole
+        vocab, from this rank's ``vocab_padded`` columns of the head: the
+        max is a constant shift (its gradient cancels), so it is taken
+        detached."""
+        logits = self.logits(x).float()              # (..., V / n) local
+        lo, hi = tp.vocab_rows(self.cfg)
+        m = all_reduce(logits.detach().amax(dim=-1), tp.group,
+                       dist.ReduceOp.MAX)
+        local = targets - lo
+        inside = (local >= 0) & (local < hi - lo)
+        t_loc = torch.gather(logits, -1, torch.where(
+            inside, local, 0)[..., None])[..., 0]
+        sums = tp.reduce(torch.stack([
+            torch.exp(logits - m[..., None]).sum(dim=-1),
+            torch.where(inside, t_loc, 0)]))
+        return torch.log(sums[0]) + m, sums[1]
 
     # ------------------------------------------------------------- serve
     @torch.no_grad()

@@ -20,7 +20,10 @@ forward-only) and every gather laid out so that its gradient adds each
 row once or sums in a fixed order: no row's gradient depends on the
 order in which additions land. Under data parallelism (``route`` and
 ``slots`` with a ``data`` group) each rank routes its rows, and the aux
-losses, C and the slots are those of the global batch.
+losses, C and the slots are those of the global batch. Under the
+``model`` axis (``moe_train(tp=)``) a rank runs its experts, and C and
+the slots count its data shard's rows, as the reference's per-shard
+``_moe_local`` does; the aux losses stay global.
 
 The capacity ``C = ceil(T * k / E * capacity_factor)`` counts all ``T =
 B * S`` rows of the call, as the reference does: whether one request's
@@ -39,6 +42,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.parallel.collectives import all_gather, all_reduce, batch_rows
 from repro_torch.parallel.sharding import AXIS_MODEL, mesh_axis_size
+from repro_torch.parallel.tensor import WHOLE
 
 
 def route(p, cfg, x, data=None):
@@ -217,7 +221,7 @@ def slots(ids, cfg, data=None):
     return slot, slot < C, C
 
 
-def moe_train(p, cfg, x, ids, wts, data=None):
+def moe_train(p, cfg, x, ids, wts, data=None, tp=WHOLE, partial=None):
     """The training route of ``moe_apply``: the same function of x, the
     weights and the gates ``wts``, differentiable in all three.
 
@@ -231,21 +235,52 @@ def moe_train(p, cfg, x, ids, wts, data=None):
     ``data``: as in ``slots``. A rank then runs its rows through its
     slots of the global table; the slots that other ranks fill stay
     empty here, so the ranks' outputs are the rows of the reference's.
+
+    ``tp`` (``parallel.tensor.TensorParallel``): where its ``model`` axis
+    of n ranks divides E, ``p`` holds this rank's E / n experts, x and the
+    gates enter the split (``TensorParallel.enter``), and the result is
+    the sum over ``model`` of the ranks' outputs, ``partial`` (this rank's
+    row-parallel part of the dense residual or shared MLP) added before
+    that one reduction. C and the fill then count this rank's rows alone,
+    its data shard's, as the reference's ``shard_map`` over the batch
+    axes makes them; ``data`` is not read (``route``'s aux losses stay
+    global). Otherwise every expert is local and ``partial`` is summed on
+    its own.
     """
+    E = cfg.n_experts
+    if tp.n == 1 or E % tp.n:
+        y = _moe_train_local(p, cfg, x, ids, wts, slots(ids, cfg, data),
+                             0, E)
+        return y if partial is None else y + tp.reduce(partial)
+    n_local = E // tp.n
+    y = _moe_train_local(p, cfg, tp.enter(x), ids, tp.enter(wts),
+                         slots(ids, cfg), tp.index * n_local, n_local)
+    if partial is not None:
+        y = y + partial
+    return tp.reduce(y)
+
+
+def _moe_train_local(p, cfg, x, ids, wts, table, lo: int, n_local: int):
+    """The experts [lo, lo + n_local) of the training route, whose weights
+    ``p`` holds, over the slots ``table`` = (slot, kept, C) of ``slots``:
+    their gated outputs added into each token, in x's dtype."""
     B, S, d = x.shape
-    T, K, E = B * S, cfg.top_k, cfg.n_experts
-    slot, kept, C = slots(ids, cfg, data)
-    flat = ids.reshape(T * K) * C + slot                  # (T*K,) slot ids
-    spare = torch.full_like(flat, E * C)
-    at = torch.where(kept, flat, spare)                   # dropped -> spare
-    src = torch.full((E * C + 1,), T * K, dtype=torch.int64, device=x.device)
+    T, K = B * S, cfg.top_k
+    slot, kept, C = table
+    idf = ids.reshape(T * K)
+    mine = kept & (idf >= lo) & (idf < lo + n_local)
+    flat = (idf - lo) * C + slot                          # (T*K,) slot ids
+    spare = torch.full_like(flat, n_local * C)
+    at = torch.where(mine, flat, spare)                   # dropped -> spare
+    src = torch.full((n_local * C + 1,), T * K, dtype=torch.int64,
+                     device=x.device)
     src[at] = torch.arange(T * K, device=x.device)        # spare row: junk
-    src = src[:E * C]                                     # slot -> choice
+    src = src[:n_local * C]                               # slot -> choice
     xk = x.reshape(T, 1, d).expand(T, K, d).reshape(T * K, d)
-    xe = torch.cat([xk, xk.new_zeros(1, d)])[src].reshape(E, C, d)
+    xe = torch.cat([xk, xk.new_zeros(1, d)])[src].reshape(n_local, C, d)
     wk = wts.reshape(T * K).float()
-    gate = torch.cat([wk, wk.new_zeros(1)])[src].reshape(E, C, 1)
-    ye = _experts(p, cfg, xe, gate, torch.bmm).reshape(E * C, d)
+    gate = torch.cat([wk, wk.new_zeros(1)])[src].reshape(n_local, C, 1)
+    ye = _experts(p, cfg, xe, gate, torch.bmm).reshape(n_local * C, d)
     ye = torch.cat([ye, ye.new_zeros(1, d)])
     # each token's kept outputs in table order (experts ascending)
     order = torch.argsort(ids.reshape(T, K), dim=1)

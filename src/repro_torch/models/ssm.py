@@ -19,7 +19,9 @@ which it reads the groups its heads use), and its rows of ``w_out``,
 whose partials are summed over ``model``. The gated norm is one RMSNorm
 over all of ``d_inner``, so the ranks' fp32 sums of squares are summed
 over ``model`` before the rsqrt: a norm over the rank's channels alone
-would be another function.
+would be another function. Training runs the same split under autograd:
+the input, ``w_B``, ``w_C``, their convs, ``norm`` and the summed squares
+enter it through ``TensorParallel.enter`` (``parallel.tensor``).
 """
 from __future__ import annotations
 
@@ -129,7 +131,8 @@ def split_rmsnorm(scale, x, eps: float, width: int, tp):
     summed over ``tp``'s ``model`` group, then divided by ``width``."""
     dt = x.dtype
     x = x.float()
-    var = tp.reduce(x.square().sum(dim=-1, keepdim=True)) / width
+    # the whole sum flows back into this rank's channels: entered
+    var = tp.enter(tp.reduce(x.square().sum(dim=-1, keepdim=True))) / width
     x = x * torch.rsqrt(var + eps)
     return (x * scale.float()).to(dt)
 
@@ -150,6 +153,12 @@ def mamba_apply(p, cfg, x, *, cache=None, train=False, tp=WHOLE):
     B, S, _ = x.shape
     hp, ds, ng = cfg.ssm_head_dim, cfg.d_state, cfg.ssm_groups
     h0, h1 = tp.ssm_heads(cfg)
+    if tp.ssm and train:
+        # whole tensors a rank reads for its heads only: their gradients
+        # sum over ``model``
+        x = tp.enter(x)
+        p = dict(p, **{k: tp.enter(p[k]) for k in (
+            "w_B", "w_C", "conv_B", "conv_C", "norm")})
     nh = h1 - h0
     g0, g1 = ssm_group_range(cfg, tp)
     z = x @ p["w_z"]

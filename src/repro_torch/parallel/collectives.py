@@ -25,6 +25,15 @@ prefill does.
 Both run over the mesh's ``model`` axis, as every caller in the
 reference passes it, and the ring is causal, as prefill is.
 
+Training under the ``model`` axis differentiates through the splits
+with three ``torch.autograd.Function``s, the transposes that GSPMD
+applies to the reference's ``psum`` and ``all_gather``: ``row_sum`` (SUM
+forward, identity backward), ``enter`` (identity forward, SUM of the
+gradient backward, at the entry of every split region) and ``gather``
+(all-gather forward, this rank's slice of the gradient backward). Without
+autograd (the serving passes run under ``no_grad``) each is the plain
+collective, bit for bit.
+
 Transport: under NCCL, device tensors go on the wire. Under gloo, whose
 send, recv and all_gather take host tensors, every collective here moves
 a CUDA tensor through a host copy: ``gloo_transport``. Gloo's all_reduce
@@ -71,16 +80,97 @@ def all_reduce(t, group, op=dist.ReduceOp.SUM):
     return w.to(t.device)
 
 
-def all_gather(t, dim: int, group):
+def all_gather(t, dim: int, group, device=None):
     """``group``'s tensors concatenated along ``dim`` in group-rank order,
-    on ``t``'s device."""
+    on ``device`` (None: ``t``'s)."""
     n = dist.get_world_size(group)
     if n == 1:
-        return t
+        return t if device is None else t.to(device)
     w = _wire(t, group)
     parts = [torch.empty_like(w) for _ in range(n)]
     dist.all_gather(parts, w, group=group)
-    return torch.cat(parts, dim=dim).to(t.device)
+    return torch.cat(parts, dim=dim).to(t.device if device is None
+                                        else device)
+
+
+# ------------------------------------------------ differentiable collectives
+# The transposes of ``jax.lax.psum`` and ``all_gather`` that GSPMD applies
+# when it differentiates through a split: training under the ``model``
+# axis (``parallel.tensor.TensorParallel``) runs them under autograd.
+def _fresh_sum(t, group):
+    """The SUM of ``t`` over ``group`` as a new tensor (``all_reduce`` may
+    reduce in place, and autograd may still read ``t``)."""
+    if not (t.is_cuda and gloo_transport(group)):
+        t = t.clone()
+    return all_reduce(t, group)
+
+
+class _RowSum(torch.autograd.Function):
+    """The row-parallel sum: SUM forward; the gradient of the sum, whole
+    on every rank, is each partial's."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return _fresh_sum(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Enter(torch.autograd.Function):
+    """The entry of a split region: identity forward; each rank's
+    gradient covers its part of the region only, so the gradients are
+    summed over ``group``."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _fresh_sum(grad, ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` forward; this rank's slice of the
+    gradient backward."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.size = dim, t.shape[dim]
+        ctx.index = dist.get_rank(group)
+        return all_gather(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None
+
+
+def _tracked(t) -> bool:
+    """Whether autograd records an operation on ``t``."""
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def row_sum(t, group):
+    """The SUM over ``group`` of a row-parallel product's partials, whose
+    gradient passes through to each partial. Without autograd, the
+    serving path's ``all_reduce``."""
+    return _RowSum.apply(t, group) if _tracked(t) else all_reduce(t, group)
+
+
+def enter(t, group):
+    """``t`` itself, whose gradient is summed over ``group``: where a
+    tensor every rank holds whole flows into compute that each rank does
+    only its part of."""
+    return _Enter.apply(t, group) if _tracked(t) else t
+
+
+def gather(t, dim: int, group):
+    """``all_gather`` along ``dim``, whose gradient is this rank's slice."""
+    return _Gather.apply(t, dim, group) if _tracked(t) else all_gather(
+        t, dim, group)
 
 
 def reduce_metrics(loss, metrics, group):

@@ -28,6 +28,19 @@ Experts split as ``models.moe.moe_apply`` decides (``E % n == 0``); the
 router stays whole. Row-parallel products (``wo``, an MLP's ``w_out``,
 Mamba2's ``w_out``) leave a partial sum on each rank, which ``reduce``
 sums over ``model``; the vocab-split logits are joined by ``gather``.
+
+Training differentiates through the same split (``parallel.collectives``:
+``reduce``'s gradient passes through, ``gather``'s is the rank's slice).
+Activations are whole on every rank, so every whole tensor that flows
+into compute a rank does only its part of passes through ``enter``, whose
+gradient is summed over ``model``: the normed residual entering
+attention, an MLP, Mamba2, the experts or the head; the router's gates;
+a whole leaf a rank reads in part (the QK-norm scales, Mamba2's ``norm``,
+``w_B``, ``w_C`` and their convs); and a sum that split compute reads
+back (Mamba2's gated norm). Without it, that tensor's gradient, and
+everything upstream of it, would be this rank's part only. What is
+computed whole from whole inputs (the router's aux losses, the norms)
+has a whole gradient on every rank and is not summed again.
 """
 from __future__ import annotations
 
@@ -35,7 +48,7 @@ from dataclasses import dataclass
 from typing import Any
 
 from repro_torch.configs.base import ParallelConfig
-from repro_torch.parallel.collectives import all_gather, all_reduce
+from repro_torch.parallel.collectives import enter, gather, row_sum
 from repro_torch.parallel.sharding import AXIS_MODEL, mesh_axis_size
 
 
@@ -91,12 +104,20 @@ class TensorParallel:
                 else (0, cfg.vocab_padded))
 
     def reduce(self, t):
-        """The sum over ``model`` of a row-parallel product's partials."""
-        return all_reduce(t, self.group) if self.n > 1 else t
+        """The sum over ``model`` of a row-parallel product's partials;
+        under autograd its gradient passes through to each partial."""
+        return row_sum(t, self.group) if self.n > 1 else t
 
     def gather(self, t, dim: int):
-        """The ranks' column slices joined along ``dim``, in rank order."""
-        return all_gather(t, dim, self.group) if self.n > 1 else t
+        """The ranks' column slices joined along ``dim``, in rank order;
+        under autograd each rank's gradient is its slice's."""
+        return gather(t, dim, self.group) if self.n > 1 else t
+
+    def enter(self, t):
+        """``t``, a tensor every rank holds whole, at the entry of compute
+        that each rank does only its part of: under autograd its gradient
+        is summed over ``model``. Without autograd, ``t`` itself."""
+        return enter(t, self.group) if self.n > 1 else t
 
 
 WHOLE = TensorParallel()

@@ -15,12 +15,14 @@ map of str keys to int, str and list of str): the card's environment is
 not known to carry the ``msgpack`` package.
 
 Checkpoints stay sharding-agnostic, as the reference's are: a leaf is
-always saved whole. Under a data mesh (``mesh=``) every rank calls
-``save``: the ZeRO-1 moment slices (``zero=``) are gathered first, rank 0
-writes and makes the one atomic rename, and every rank waits on a
-barrier. On restore every rank reads the whole leaves and keeps its
-slices, so a directory written by a world restores on one device, in the
-JAX package or in a world of another size, and the other way round.
+always saved whole. Under a mesh (``mesh=``) every rank calls
+``save``: the ZeRO-1 moment slices (``zero=``) are gathered over the
+batch axes first, then the slices over ``model`` (``split=``) of the
+params and moments, rank 0 writes and makes the one atomic rename, and
+every rank waits on a barrier. On restore every rank reads the whole
+leaves and keeps its slices, so a directory written by a world restores
+on one device, in the JAX package or in a world of another shape, and
+the other way round.
 """
 from __future__ import annotations
 
@@ -196,15 +198,19 @@ def _dtype_name(leaf) -> str:
 
 
 def save(path: str, step: int, state: TrainState, keep: int = 3, *,
-         mesh=None, zero=None) -> str:
+         mesh=None, zero=None, split=None) -> str:
     """Save ``state`` at ``path/step_<step>``; returns the final dir.
     Under ``mesh`` every rank calls it (with ``zero``, the
-    ``optimizer.Zero1`` its moments are sliced by, or None) and rank 0
-    writes."""
+    ``optimizer.Zero1`` its moments are sliced by, and ``split``, the
+    ``bridge.ModelSplit`` its params and moments are sliced by over
+    ``model``, each None where it does not apply) and rank 0 writes."""
     if zero is not None:
         state = TrainState(state.step, state.params,
                            zero.gather_tree(state.m),
                            zero.gather_tree(state.v))
+    if split is not None:
+        state = TrainState(state.step, *(split.gather_tree(t, "cpu") for t in (
+            state.params, state.m, state.v)))
     final = os.path.join(path, f"step_{step}")
     if mesh is None or dist.get_rank() == 0:
         _write(path, step, state, keep)
@@ -256,13 +262,15 @@ def latest_step(path: str) -> int | None:
 
 
 def restore(path: str, like: TrainState, step: int | None = None,
-            device=None, *, zero=None):
+            device=None, *, zero=None, split=None):
     """Restore into the layout of ``like`` (tensors of the right shapes,
     meta tensors will do: their values are not read) and return (state,
     step), the leaves on ``device`` (None: each on its ``like`` leaf's
     device). The leaf count and every shape must match, else ValueError;
-    each leaf takes the dtype the manifest names. With ``zero``
-    (``optimizer.Zero1``) the moments are this rank's slices."""
+    each leaf takes the dtype the manifest names. With ``split``
+    (``bridge.ModelSplit``) the params and moments are this rank's slices
+    over ``model``, cut on the host; with ``zero`` (``optimizer.Zero1``)
+    the moments are this rank's slices of those."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -285,6 +293,8 @@ def restore(path: str, like: TrainState, step: int | None = None,
         if isinstance(lk, int):
             out[name] = int(arr)
             continue
+        if split is not None:
+            arr = _cut(arr, split.cuts[name.split("/", 1)[1]])
         if dt == _BF16:
             t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
         else:
@@ -294,6 +304,14 @@ def restore(path: str, like: TrainState, step: int | None = None,
     if zero is not None:
         state.m, state.v = zero.slice_tree(state.m), zero.slice_tree(state.v)
     return state, step
+
+
+def _cut(arr: np.ndarray, cut) -> np.ndarray:
+    """The slice ``cut`` = (dim, start, stop) of ``arr``, or ``arr``."""
+    if cut is None:
+        return arr
+    dim, lo, hi = cut
+    return arr[(slice(None),) * dim + (slice(lo, hi),)]
 
 
 def _rebuild(tree, prefix, flat):

@@ -6,9 +6,10 @@ resize requests by checkpointing and re-entering.
 
 With ``mesh`` the loop runs as one rank of the caller's world (every
 rank calls it with the same arguments; ``launch.world.spawn_world``
-starts such a world): the step is data-parallel
-(``train.train_step``), and checkpoints are saved whole by rank 0
-(``train.checkpoint``). A resize re-enters on the loop's own devices:
+starts such a world): the step is data-parallel over the batch axes
+and split over ``model`` (``train.train_step``), each rank drawing the
+whole init stream and keeping its slices, and checkpoints are saved
+whole by rank 0 (``train.checkpoint``). A resize re-enters on the loop's own devices:
 its value is None or a mesh equal to the loop's. A resize to another
 data extent needs a world of another size, which the controller's
 segments start (``core.controller``); the loop does not.
@@ -26,7 +27,7 @@ from repro_torch.models.lm import DTYPES, LM, resolve_device, tree_map
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import TrainState
 from repro_torch.train.train_step import (
-    build_train_step, make_optimizer, zero_for)
+    build_train_step, make_optimizer, model_split, zero_for)
 
 
 class Preemption(Exception):
@@ -98,19 +99,21 @@ def _start(rcfg, ckpt_dir, device, mesh=None):
     """(state, start step, step_fn) of a job entering on ``device``, as
     one rank of ``mesh`` if given: a fresh state from the run's seed (the
     same on every rank), or the newest checkpoint in ``ckpt_dir``
-    restored there; the moments are the rank's ZeRO-1 slices under
-    ``step_fn.zero``. ``step_fn`` steps an LM over that state's params.
+    restored there; the params and moments are the rank's slices over
+    ``model`` under ``step_fn.split``, and the moments its ZeRO-1 slices
+    of those under ``step_fn.zero``. ``step_fn`` steps an LM over that state's params.
     The loop's attempts and the controller's segments all enter here."""
-    zero = zero_for(rcfg, mesh)
+    zero, split = zero_for(rcfg, mesh), model_split(rcfg, mesh)
     start = ckpt.latest_step(ckpt_dir)
     if start is None:
         gen = torch.Generator(device=device).manual_seed(rcfg.seed)
-        state = make_optimizer(rcfg).init(
-            init_params(rcfg.model, gen, device), zero)
+        state = make_optimizer(rcfg).init(init_params(
+            rcfg.model, gen, device, mesh=mesh if split else None,
+            parallel=rcfg.parallel), zero)
         start = 0
     else:
         state, start = ckpt.restore(ckpt_dir, _like(rcfg), device=device,
-                                    zero=zero)
+                                    zero=zero, split=split)
     lm = LM(rcfg.model, state.params, device=device)
     step_fn, _ = build_train_step(lm, rcfg, mesh)
     return state, start, step_fn
@@ -121,8 +124,9 @@ def _run_attempt(rcfg, ckpt_dir, num_steps, ckpt_every, device, mesh,
     if batch_fn is None:
         batch_fn = synthetic_batches(rcfg, device, mesh)
     state, start, step_fn = _start(rcfg, ckpt_dir, device, mesh)
-    save = dict(mesh=mesh, zero=step_fn.zero)
+    save = dict(mesh=mesh, zero=step_fn.zero, split=step_fn.split)
 
+    saved = None                  # the step of the last interval save
     for step in range(start, num_steps):
         if fail_at.pop(step, None):
             raise Preemption(f"injected failure at step {step}")
@@ -139,5 +143,8 @@ def _run_attempt(rcfg, ckpt_dir, num_steps, ckpt_every, device, mesh,
         report.losses.append(float(metrics["loss"]))
         if ckpt_every and (step + 1) % ckpt_every == 0:
             ckpt.save(ckpt_dir, step + 1, state, **save)
-    ckpt.save(ckpt_dir, num_steps, state, **save)
+            saved = step + 1
+    if saved != num_steps:
+        # the final state, unless the interval has just written it
+        ckpt.save(ckpt_dir, num_steps, state, **save)
     report.final_loss = report.losses[-1] if report.losses else float("nan")

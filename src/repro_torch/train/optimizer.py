@@ -17,6 +17,12 @@ the matching slice of the parameter, which is then all-gathered along
 that dim. The reference leaves this dataflow (reduce-scatter, update,
 all-gather) to GSPMD; the port writes it out. ``AdamW.apply`` is
 elementwise, so the slices' updates are the whole update's bits.
+
+Under a ``model`` axis of more than one rank the params are the rank's
+slices (``bridge.ModelSplit``), and ZeRO-1 cuts the moments of each slice
+along its ``embed`` dim over (``pod``, ``data``): the reference's
+``opt_strategy = "fsdp_tp"`` for moments. The global norm sums the
+slices' squares over ``model`` too (``AdamW.apply(split=)``).
 """
 from __future__ import annotations
 
@@ -48,11 +54,15 @@ class TrainState:
 
 
 def _slices(t):
-    """``t`` itself, or its slices along axis 0 while one fp32 copy of a
-    slice exceeds SLICE_LIMIT_BYTES."""
+    """``t`` itself, or its blocks of rows along axis 0, each as many rows
+    as keep one fp32 copy within SLICE_LIMIT_BYTES; a row that alone
+    exceeds it is sliced the same way along its own axis 0. (A row at a
+    time would be one set of kernels a row: qwen3-14b's embedding has
+    151,936 rows.)"""
     if t.dim() > 1 and t.numel() * 4 > SLICE_LIMIT_BYTES:
-        for part in t:
-            yield from _slices(part)
+        rows = max(1, SLICE_LIMIT_BYTES // (t[0].numel() * 4))
+        for part in t.split(rows):
+            yield from (_slices(part[0]) if rows == 1 else (part,))
     else:
         yield t
 
@@ -181,8 +191,8 @@ class AdamW:
         return self.lr * warm * frac
 
     @torch.no_grad()
-    def apply(self, state: TrainState, grads,
-              zero: Zero1 | None = None) -> tuple[TrainState, dict]:
+    def apply(self, state: TrainState, grads, zero: Zero1 | None = None,
+              split=None) -> tuple[TrainState, dict]:
         """One update from ``grads`` (a nested dict laid out as the params,
         any float dtype: each slice is cast to fp32 here), in place, leaves
         in the reference's order. Returns (state, {"grad_norm", "lr"}),
@@ -194,18 +204,37 @@ class AdamW:
         gradient) or already this rank's slice (a reduce-scatter); the
         global norm sums the whole leaves in leaf order on every rank, and
         the slices' squares over the batch axes, so each leaf counts once
-        and every rank clips by the same scale."""
+        and every rank clips by the same scale.
+
+        ``split`` (``bridge.ModelSplit``, under a ``model`` axis of more
+        than one rank): the params of its ``split`` paths are this rank's
+        slices over ``model``, and their squares are summed over
+        ``model`` as well; a leaf every ``model`` rank holds whole counts
+        once."""
         paths = [p for p, _ in sorted_tree_leaves(state.params)]
         leaves = list(zip(paths, _leaves(state.params), _leaves(grads),
                           _leaves(state.m), _leaves(state.v)))
-        whole = [g for _, p, g, _, _ in leaves if g.shape == p.shape]
-        sq = sum(part.float().square().sum()
-                 for g in whole for part in _slices(g))
-        if len(whole) < len(leaves):
-            mesh = zero.mesh
-            sliced = sum(g.float().square().sum()
-                         for _, p, g, _, _ in leaves if g.shape != p.shape)
-            sq = sq + all_reduce(sliced, mesh.group(*batch_axes(mesh)))
+        cut = split.split if split is not None else frozenset()
+        # squares by (zero-sliced gradient, leaf split over model), each
+        # summed in leaf order
+        sums = {}
+        for path, p, g, _, _ in leaves:
+            key = (g.shape != p.shape, path in cut)
+            for part in _slices(g):
+                sums[key] = sums.get(key, 0) + part.float().square().sum()
+
+        def total(*key):
+            return torch.as_tensor(sums.get(key, 0), dtype=torch.float32,
+                                   device=leaves[0][1].device)
+
+        sq, sliced = total(False, False), total(True, True)
+        if (True, False) in sums or (True, True) in sums:
+            # a slice's squares are summed over the batch axes first
+            both = all_reduce(torch.stack([total(True, False), sliced]),
+                              zero.mesh.group(*batch_axes(zero.mesh)))
+            sq, sliced = sq + both[0], both[1]
+        if cut:
+            sq = sq + all_reduce(total(False, True) + sliced, split.tp.group)
         gnorm = torch.sqrt(sq)
         scale = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)

@@ -34,16 +34,33 @@ update as one device, up to the order of the sums.
   as the reference's wrapped ``grad_fn`` does per microbatch. Without a
   pod axis the flag changes nothing, as in the reference.
 
-A mesh whose ``model`` axis holds more than one rank, and the ``fsdp_tp``
-strategy under a data mesh, raise: training under the ``model`` axis and
-FSDP parameter storage are later slices of the port (ROADMAP queue 3).
+Under a mesh whose ``model`` axis holds n > 1 ranks (``(model n)``,
+``(data d, model n)`` or ``(pod, data, model)``, the ``tp`` strategy),
+each rank holds and trains its slices of the leaves that serving splits
+(``bridge.ModelSplit``: heads, MLP columns, vocab rows, Mamba2 heads,
+experts) and computes the loss with its ``model`` peers under autograd
+(``LM.loss(rt=)``); the rows are its batch index's, as above. A split
+leaf's gradient is the rank's slice, a whole leaf's is whole on every
+``model`` rank, and each is summed over the batch axes of its own
+``model`` index only (``reduce_grads``: the mesh's batch group), never
+over ``model``. The clip norm sums the slices' squares over ``model``
+(``AdamW.apply(split=)``) and ZeRO-1 cuts the moments of each slice. The
+step is the reference's on the same mesh: one device's math, with the
+MoE capacity per data shard where the experts split
+(``models.moe.moe_train``).
+
+The ``fsdp_tp`` strategy under a data mesh raises: FSDP parameter storage
+is a later slice of the port (ROADMAP queue 3). So does pod compression
+under a ``model`` axis of more than one rank, which the reference's
+``shard_map`` over ``pod`` does not run.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.models.lm import LM, tree_leaves
+from repro_torch.bridge import ModelSplit, meta_params
+from repro_torch.models.lm import LM, Runtime, tree_leaves
 from repro_torch.parallel.collectives import (
     all_reduce, gloo_transport, reduce_metrics)
 from repro_torch.parallel.compression import build_pod_compressed_grad_fn
@@ -65,19 +82,29 @@ def make_optimizer(rcfg) -> AdamW:
 
 
 def check_data_mesh(mesh, parallel) -> None:
-    """Raise for what the port does not train under yet."""
+    """Raise for what the port does not train under yet, or what the
+    reference does not run."""
     if mesh is None:
         return
-    if mesh_axis_size(mesh, AXIS_MODEL) > 1:
+    if (mesh_axis_size(mesh, AXIS_MODEL) > 1 and parallel.grad_compress_pod
+            and mesh_axis_size(mesh, AXIS_POD) > 1):
         raise ValueError(
-            f"a mesh with {mesh.shape[AXIS_MODEL]} ranks on the model axis: "
-            "the port trains data-parallel only; training under the model "
-            "axis (autograd through the TP/EP collectives) is ROADMAP "
-            "queue 3")
+            f"grad_compress_pod with {mesh.shape[AXIS_MODEL]} ranks on the "
+            "model axis: the reference's shard_map over pod does not run "
+            "with model > 1 (its inner shardings name the manual pod "
+            "axis), so there is no step to copy")
     if parallel.strategy == "fsdp_tp":
         raise ValueError("strategy 'fsdp_tp' under a data mesh: FSDP "
                          "parameter storage is ROADMAP queue 3; use 'tp' "
                          "(with zero1 for sharded moments)")
+
+
+def model_split(rcfg, mesh) -> ModelSplit | None:
+    """This rank's slices under ``mesh``'s ``model`` axis
+    (``bridge.ModelSplit``), or None when that axis holds one rank."""
+    if mesh is None or mesh_axis_size(mesh, AXIS_MODEL) == 1:
+        return None
+    return ModelSplit(rcfg.model, mesh, rcfg.parallel)
 
 
 def zero_for(rcfg, mesh) -> Zero1 | None:
@@ -149,7 +176,10 @@ def build_train_step(lm: LM, rcfg, mesh=None):
     place, on the LM's device. Under ``mesh`` every rank calls it with
     the global batch and gets the global metrics; build the state with
     ``opt.init(lm.params, zero)``, ``zero`` being ``train_step.zero``
-    (None without ZeRO-1).
+    (None without ZeRO-1). Under a ``model`` axis of more than one rank,
+    ``lm.params`` must be this rank's slices (``bridge.init_params`` or
+    ``params_from_jax`` with the mesh and ``rcfg.parallel``), which
+    ``train_step.split`` (``bridge.ModelSplit``, else None) names.
 
     Sets ``requires_grad`` on every param leaf; the serving passes run
     under ``torch.no_grad`` and are unaffected.
@@ -159,6 +189,16 @@ def build_train_step(lm: LM, rcfg, mesh=None):
     opt = make_optimizer(rcfg)
     n_micro = max(parallel.microbatches, 1)
     paths, leaves = zip(*tree_leaves(lm.params))
+    split = model_split(rcfg, mesh)
+    if split is not None:
+        want = dict(tree_leaves(meta_params(rcfg.model, mesh=mesh,
+                                            parallel=parallel)))
+        for path, t in zip(paths, leaves):
+            if t.shape != want[path].shape:
+                raise ValueError(f"param {path} of shape {tuple(t.shape)}: "
+                                 f"this rank of {dict(mesh.shape)} holds "
+                                 f"{tuple(want[path].shape)}")
+    rt = Runtime(parallel, mesh) if split is not None else None
     for t in leaves:
         t.requires_grad_(True)
     bax = batch_axes(mesh) if mesh is not None else ()
@@ -176,7 +216,7 @@ def build_train_step(lm: LM, rcfg, mesh=None):
     zero = zero_for(rcfg, mesh)
 
     def grad_fn(batch):
-        loss, metrics = lm.loss(batch, parallel, data=loss_group)
+        loss, metrics = lm.loss(batch, parallel, data=loss_group, rt=rt)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), metrics, grads
 
@@ -228,8 +268,10 @@ def build_train_step(lm: LM, rcfg, mesh=None):
             for acc in grads:      # apply casts each slice to fp32
                 acc.div_(n_micro)
             loss = loss / n_micro
-        state, opt_metrics = opt.apply(state, unflatten(paths, grads), zero)
+        state, opt_metrics = opt.apply(state, unflatten(paths, grads), zero,
+                                       split)
         return state, dict(metrics, loss=loss, **opt_metrics)
 
     train_step.zero = zero
+    train_step.split = split
     return train_step, opt

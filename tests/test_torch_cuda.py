@@ -959,3 +959,73 @@ def test_data_parallel_step_equals_one_rank(card, backend):
             torch.testing.assert_close(r["params"][p], want, rtol=1e-4,
                                        atol=1e-4)
             assert torch.equal(r["params"][p], ranks[0]["params"][p]), p
+
+
+# ------------------------------------------- training under the model axis
+def _tp_step(mesh):
+    """One step of qwen3-14b's smoke config in fp32 on the card, as a rank
+    of ``mesh`` (None: alone), its params split over ``model`` (heads, MLP
+    columns, vocab rows): global batch 4, ZeRO-1 on, fp32 moments.
+    Returns the metrics, the updated params joined whole, the launch
+    counts and the backend."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import (
+        ParallelConfig, RunConfig, ShapeConfig, get_smoke_config)
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.models.lm import LM, tree_leaves, tree_map
+    from repro_torch.train.train_step import build_train_step, model_split
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("qwen3-14b"), dtype="float32")
+    rcfg = RunConfig(model=cfg, shape=ShapeConfig("tp", "train", 32, 4),
+                     parallel=ParallelConfig(attn_q_chunk=16,
+                                             attn_kv_chunk=16),
+                     warmup_steps=2, moment_dtype="float32")
+    dev = mesh.device if mesh is not None else torch.device("cuda", 0)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    split = model_split(rcfg, mesh)
+    if split is not None:
+        params = split.slice_tree(params)
+    lm = LM(cfg, tree_map(lambda t: t.to(dev), params), device=dev)
+    step_fn, opt = build_train_step(lm, rcfg, mesh)
+    state = opt.init(lm.params, step_fn.zero)
+    ops.reset_launch_counts()
+    state, met = step_fn(state, synthetic_batches(rcfg, dev)(0))
+    whole = split.gather_tree(lm.params) if split is not None else lm.params
+    return {"metrics": {k: float(v) for k, v in met.items()},
+            "params": {p: t.detach().cpu() for p, t in tree_leaves(whole)},
+            "launches": ops.launch_counts(),
+            "backend": dist.get_backend() if mesh is not None else None}
+
+
+def _tp_rank(rank, mesh):
+    return _tp_step(mesh)
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_tensor_parallel_train_step_equals_one_rank(card, backend):
+    """A train step split over ``model`` (``launch.world.spawn_world(...,
+    model=2)``): gloo at (model 2) with both ranks on the one card, NCCL at
+    (data 2, model 2) with a card a rank. Loss and metrics within rtol
+    1e-5 of one rank's step at the same global batch, the updated params
+    within 1e-4 and equal bit for bit on every rank; no kernel launches."""
+    from repro_torch.launch.world import spawn_world
+    if backend == "nccl" and torch.cuda.device_count() < 4:
+        pytest.skip("NCCL puts one rank on a card: (data 2, model 2) needs "
+                    "four cards")
+    devices = (["cuda:0"] * 2 if backend == "gloo"
+               else [f"cuda:{i}" for i in range(4)])
+    ranks = spawn_world(len(devices), _tp_rank, devices=devices, model=2)
+    one = _tp_step(None)
+    for r in ranks:
+        assert r["backend"] == backend
+        assert not any(r["launches"].values()), r["launches"]
+        for k, want in one["metrics"].items():
+            assert r["metrics"][k] == pytest.approx(want, rel=1e-5), k
+        for p, want in one["params"].items():
+            torch.testing.assert_close(r["params"][p], want, rtol=1e-4,
+                                       atol=1e-4)
+            assert torch.equal(r["params"][p], ranks[0]["params"][p]), p
