@@ -103,7 +103,7 @@ train. the HTC training job (``repro_torch.train``), which reaches no
    run's step for step, bit for bit, and fall; one loss and backward under
    ``torch.use_deterministic_algorithms``; (c) musicgen-large at full
    width and depth in bf16, seq 4096, batch 8 in 8 microbatches, remat
-   per layer: 3 steps from a fresh init with seconds, tokens/s and model
+   per layer: 1 step from a fresh init with seconds, tokens/s and model
    FLOPs as a share of the bf16 peak per step, the peak device memory,
    and one microbatch under torch.profiler (busy share, top items); (d)
    jamba's smoke config (Mamba2, attention and MoE in one stack) in fp32,
@@ -166,6 +166,32 @@ tp-train. training under the ``model`` axis (``train.train_step`` on a
    TRAIN_ATOL["deep ssm"]. It prints each rank's seconds a bf16 step
    beside one rank's with the share in the ``model`` collectives, and the
    launch counters, which stay 0 here and in the ranks.
+
+fsdp. FSDP parameter storage (``ParallelConfig(strategy="fsdp_tp")``): a
+   world of 2 gloo ranks on the card at (data 2)
+   (``launch.world.spawn_world``), each storing its half of every leaf
+   with an ``embed`` dim and gathering a layer while it runs, against
+   one rank. (g1) the tp-train phase's qwen3-14b cut (2 of 40 layers,
+   bf16) serves the first FSDP_REQUESTS of phase 4's requests,
+   FSDP_NEW_TOKENS new tokens each, contiguous then paged, through the
+   kernels (the launch counters set to 0 just before each engine run and
+   read just after): every rank's tokens, finish order, prefill logits
+   and first decode step (embedding, logits, layer-0 K/V) equal one
+   rank's bit for bit, a rank stores half the bytes (measured and
+   counted); it prints prefill ms a group and decode ms a step beside one
+   rank's and the gathers' seconds (the ``head`` table and the layers).
+   (g2) the dp phase's musicgen cut in fp32, one row a rank: each rank
+   takes the one-rank step itself and keeps its stored slices of it;
+   loss, grad norm, gradient and updated param slices within the train
+   phase's fp32 bounds, the leaves stored whole bit-equal on the ranks,
+   params a rank as counted, then the TF32 control. (g3) the cut in bf16
+   through ``train_loop(mesh=)``: 8 steps, checkpoints every 4, a
+   preemption before step 6, the replayed steps bit for bit, the next
+   step from the world's checkpoint on one rank within DP_NEXT_RTOL; a
+   rank's step timed with its gathers and their backward's all-reduces,
+   beside the dp phase's tp + ZeRO-1 rank. (g4) jamba's smoke config in
+   fp32 at capacity factor 0.5: drops over the ranks equal one rank's,
+   gradients within TRAIN_ATOL["dp jamba"]. Training launches no kernel.
 
 The last three lines are the ``nvidia-smi`` name and power limit, a JSON
 object with one entry per kernel, and ``{"ok": true, "device": ...}``.
@@ -290,6 +316,14 @@ DP_NEXT_RTOL = 1e-3
 # TP_TRAIN_STEPS bf16 steps, the timed run TP_TIMED_STEPS after a warm-up
 TP_TRAIN_WORLD, TP_TRAIN_LAYERS = 2, 2
 TP_TRAIN_STEPS, TP_TIMED_STEPS = 8, 3
+# the train phase's (c): full-width, full-depth musicgen steps (25-34 s
+# each on the H100; 3 until the fsdp phase came, which needs the room)
+TRAIN_FULL_STEPS = 2
+# the fsdp phase: a world of FSDP_WORLD gloo ranks on the card at (data
+# FSDP_WORLD) under strategy "fsdp_tp"; (g1) serves the first
+# FSDP_REQUESTS of phase 4's requests, FSDP_NEW_TOKENS each, on the
+# tp-train phase's qwen3-14b cut
+FSDP_WORLD, FSDP_REQUESTS, FSDP_NEW_TOKENS = 2, 8, 4
 
 
 class SmokeError(RuntimeError):
@@ -2419,7 +2453,8 @@ def train_resume(smi):
 
 def train_full(smi):
     """(c): musicgen-large at full width and depth, bf16, seq 4096, batch
-    8 in 8 microbatches, remat per layer: 3 steps from a fresh init."""
+    8 in 8 microbatches, remat per layer: TRAIN_FULL_STEPS steps from a
+    fresh init."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.bridge import init_params
@@ -2454,7 +2489,7 @@ def train_full(smi):
           f"microbatches, remat {rcfg.parallel.remat}; model FLOPs per step "
           f"{flops / 1e12:.1f} T (6 N tokens + 12 L S^2 d per sequence, "
           "recompute left out)")
-    for step in range(3):
+    for step in range(TRAIN_FULL_STEPS):
         batch = batches(step)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2821,7 +2856,7 @@ def _dp_rank(rank, mesh, work):
     from repro_torch.kernels import ops
     from repro_torch.train import optimizer
     from repro_torch.train import train_step as ts
-    from repro_torch.train.optimizer import Zero1
+    from repro_torch.parallel.fsdp import BatchCuts
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ops.reset_launch_counts()
@@ -2831,7 +2866,7 @@ def _dp_rank(rank, mesh, work):
     one = card_step(e1, dp_uneven_batch(e1)) if rank == 0 else None
     free_device_memory()
     world = card_step(e1, dp_uneven_batch(e1), mesh)
-    zero = Zero1(e1.model, mesh)
+    zero = BatchCuts(e1.model, mesh)
     out["e1"] = {"metrics": world["metrics"],
                  "moment_bytes": world["moment_bytes"],
                  "counted": sum(2 * 2 * math.prod(zero.local(p, t).shape)
@@ -2925,12 +2960,12 @@ def zero_bytes_full_depth():
     from repro_torch.bridge import meta_params
     from repro_torch.configs import get_config
     from repro_torch.models.lm import tree_leaves
-    from repro_torch.train.optimizer import Zero1
+    from repro_torch.parallel.fsdp import BatchCuts
     cfg = get_config(ARCH)
     mesh = SimpleNamespace(axis_names=("data", "model"),
                            shape={"data": DP_WORLD, "model": 1},
                            coords={"data": 0, "model": 0})
-    zero = Zero1(cfg, mesh)
+    zero = BatchCuts(cfg, mesh)
     whole = rank = 0
     for path, t in tree_leaves(meta_params(cfg)):
         whole += 2 * 2 * t.numel()
@@ -3075,6 +3110,7 @@ def phase_dp(smi):
     phase("dp", "done", f"launches {counts} here and "
           f"{[r['launches'] for r in ranks]} in the ranks; world {world_s:.1f}"
           f" s; phase {time.perf_counter() - t0:.1f} s; {smi}")
+    return [statistics.median(r["times"]) for r in ranks]
 
 # -------------------------------------------------------------- tp-train
 def qwen3_cut(dtype):
@@ -3392,7 +3428,478 @@ def phase_tp_train(smi):
           f"{world_s:.1f} s; phase {time.perf_counter() - t0:.1f} s; {smi}")
 
 
+# ------------------------------------------------------------------ fsdp
+class Stored:
+    """The slices of a model's leaves that this rank of ``mesh`` stores
+    under ``parallel`` (``bridge.storage_cuts``): ``local`` cuts a whole
+    leaf to it, ``split`` names the leaves some rank cuts."""
+
+    def __init__(self, cfg, mesh, parallel):
+        from repro_torch.bridge import meta_params, storage_cuts
+        from repro_torch.models.lm import tree_leaves
+        self.cuts = storage_cuts(cfg, mesh, parallel)
+        self.split = {p for p, t in tree_leaves(meta_params(cfg))
+                      if self.cuts(p, t.shape)}
+
+    def local(self, path, t):
+        for dim, lo, hi in self.cuts(path, t.shape):
+            t = t.narrow(dim, lo, hi - lo)
+        return t
+
+
+def fsdp_serve_cfg():
+    return qwen3_cut("bfloat16")
+
+
+def fsdp_requests(cfg):
+    from repro_torch.serve.engine import Request
+    reqs = make_requests(cfg, Request)[:FSDP_REQUESTS]
+    for r in reqs:
+        r.max_new_tokens = FSDP_NEW_TOKENS
+    return reqs
+
+
+@contextlib.contextmanager
+def gathers_timed(into):
+    """Seconds of each FSDP gather (``BatchCuts.gather``), device-synced on
+    both sides, added to ``into[("table" or "layer", what)]`` where
+    ``what`` is ``into["now"]``, the engine call under way."""
+    from repro_torch.parallel.fsdp import BatchCuts
+    orig = BatchCuts.gather
+
+    def gather(self, path, t, lead=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(self, path, t, lead)
+        torch.cuda.synchronize()
+        key = ("table" if path in ("embed", "head") else "layer",
+               into.get("now"))
+        into[key] = into.get(key, 0.0) + time.perf_counter() - t0
+        return out
+
+    BatchCuts.gather = gather
+    try:
+        yield into
+    finally:
+        BatchCuts.gather = orig
+
+
+def fsdp_serve(lm, rt=None):
+    """(g1) on this rank (``rt`` an "fsdp_tp" runtime) or alone: the
+    requests contiguous, with the first decode step recorded, then paged;
+    per mode the tokens, launches (set to 0 just before, read just after
+    each run, held to ``expected_launches``), prefill ms a group, decode
+    ms a step, and under ``rt`` the gathers' seconds in each."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models.blocks import DECODE_BLOCK_S
+    from repro_torch.serve.engine import Engine
+    out = {}
+    for mode in ("contiguous", "paged"):
+        ps = DECODE_BLOCK_S if mode == "paged" else None
+        eng = Engine(lm, rt=rt, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                     page_size=ps, device="cuda")
+        pre_s, step_s, spent = [], [], {}
+
+        def marked(fn, what, into):
+            timed = _timed(fn, into)
+
+            def call(*a, **kw):
+                spent["now"] = what
+                try:
+                    return timed(*a, **kw)
+                finally:
+                    spent["now"] = None
+            return call
+
+        eng._prefill_group = marked(eng._prefill_group, "prefill", pre_s)
+        eng.step = marked(eng.step, "decode", step_s)
+        reqs = fsdp_requests(lm.cfg)
+        with (first_decode_recorded(lm) if ps is None
+              else contextlib.nullcontext([])) as first, (
+                gathers_timed(spent) if rt is not None
+                else contextlib.nullcontext(spent)):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            done = eng.run(reqs)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+        want = expected_launches(lm.cfg, eng, ps is not None)
+        check(counts == want, f"fsdp g1 {mode}: launches {counts} != "
+              f"expected {want}")
+        if eng.pager is not None:
+            check(eng.pager.used_pages == 0, "fsdp g1 paged: pages not freed")
+            eng.pager.check_conservation()
+        out[mode] = {
+            "served": [(r.rid, np.asarray(r.out_tokens).tolist())
+                       for r in done],
+            "counts": counts, "prefill_ms": [1e3 * x for x in pre_s],
+            "decode_ms": [1e3 * x for x in step_s],
+            "gathers": {f"{k[0]} {k[1]}": v for k, v in spent.items()
+                        if isinstance(k, tuple)},
+            "first": first[0] if first else None}
+        del eng
+    return out
+
+
+def _fsdp_rank(rank, mesh, work):
+    """One rank of the fsdp phase (``launch.world.spawn_world``'s target
+    at (data FSDP_WORLD)): (g1)-(g4) of the module docstring, every launch
+    counter set to 0 just before and read just after each part. Each rank
+    takes (g2)'s and (g4)'s one-rank steps itself (small cuts) and keeps
+    its stored slices of them. Only numbers and (g1)'s records go back."""
+    import torch.distributed as dist
+    from repro_torch.bridge import init_params, meta_params
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import LM, Runtime
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.check import bytes_held
+    from repro_torch.parallel.collectives import all_reduce
+    from repro_torch.train import train_step as ts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = mesh.group("data")
+    out = {"backend": dist.get_backend(), "device": str(mesh.device),
+           "coords": mesh.coords}
+    # (g1)
+    cfg = fsdp_serve_cfg()
+    parallel = ParallelConfig(strategy="fsdp_tp")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    lm = LM(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda", mesh=mesh, parallel=parallel), device="cuda")
+    torch.cuda.synchronize()
+    out["g1_held"] = torch.cuda.memory_allocated() - before
+    out["g1_counted"] = bytes_held(meta_params(cfg, mesh=mesh,
+                                               parallel=parallel))
+    out["g1"] = fsdp_serve(lm, Runtime(parallel, mesh))
+    out["g1_peak"] = torch.cuda.max_memory_allocated()
+    del lm
+    free_device_memory()
+    ops.reset_launch_counts()
+    # (g2)
+    g2 = fsdp_g2_run()
+    stored = Stored(g2.model, mesh, g2.parallel)
+    batch = dp_uneven_batch(g2)
+    one = card_step(g2, batch, split=stored)
+    free_device_memory()
+    world = card_step(g2, batch, mesh)
+    out["g2"] = against_one(one, world, "dense")
+    same, n_whole, bad = whole_leaves_equal(world["grads"], stored, group)
+    out["g2"].update(
+        held=world["held"], counted=bytes_held(meta_params(
+            g2.model, mesh=mesh, parallel=g2.parallel)),
+        whole=bytes_held(meta_params(g2.model)), one_held=one["held"],
+        moment_bytes=world["moment_bytes"], metrics=world["metrics"],
+        split=len(stored.split), whole_equal=same, n_whole=n_whole,
+        unequal=bad)
+    del world
+    free_device_memory()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tgrads = card_step(g2, batch, mesh)["grads"]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ratio = grad_errors(tgrads, one["grads"], "dense",
+                        {p: s[0] for p, s in one["scales"].items()})[1]
+    out["tf32"] = float(all_reduce(torch.tensor(ratio), group,
+                                   dist.ReduceOp.MAX))
+    del tgrads, one
+    free_device_memory()
+    # (g3): the step timed, to set beside the dp phase's tp + ZeRO-1 step
+    # on the same cut
+    timed = ((collectives, "all_gather"), (collectives, "all_reduce"),
+             (ts, "reduce_grads"))
+    out["times"], out["spent"] = step_times(fsdp_g3_run(), mesh,
+                                            timed=timed)
+    free_device_memory()
+    out["g3"] = tpt_resume(fsdp_g3_run(), work, mesh)
+    free_device_memory()
+    # (g4)
+    g4 = fsdp_g4_run()
+    stored = Stored(g4.model, mesh, g4.parallel)
+    batch = synthetic_batches(g4, "cuda")(0)
+    drops = {}
+    with counted_drops(drops):
+        one = card_step(g4, batch, split=stored)
+    out["g4_one_drops"] = drops.pop("drops", 0)
+    with counted_drops(drops):
+        world = card_step(g4, batch, mesh)
+    out["g4"] = against_one(one, world, "dp jamba")
+    out["g4"].update(drops=drops.get("drops", 0), split=len(stored.split))
+    del world, one
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def fsdp_g2_run():
+    return dp_run(musicgen_cut("float32"), 512, FSDP_WORLD,
+                  parallel={"strategy": "fsdp_tp"})
+
+
+def fsdp_g3_run():
+    return dp_run(musicgen_cut("bfloat16"), 512, FSDP_WORLD,
+                  learning_rate=3e-3, warmup_steps=2, total_steps=DP_STEPS,
+                  parallel={"strategy": "fsdp_tp"})
+
+
+def fsdp_g4_run():
+    r = dp_e3_run()
+    return dataclasses.replace(r, parallel=dataclasses.replace(
+        r.parallel, strategy="fsdp_tp"))
+
+
+def check_fsdp_serve(one, ranks, smi):
+    """(g1): every rank's tokens, finish order, prefill logits, first
+    decode step's embedding, logits and layer-0 K/V equal one rank's bit
+    for bit, contiguous and paged."""
+    for r in ranks:
+        for mode in ("contiguous", "paged"):
+            check(r["g1"][mode]["served"] == one[mode]["served"],
+                  f"fsdp g1 {mode}: rank {r['coords']} served other tokens "
+                  "or another finish order than one rank")
+        got, want = r["g1"]["contiguous"]["first"], one["contiguous"]["first"]
+        for key in ("prefill", "tokens", "lengths", "emb", "logits", "k0",
+                    "v0"):
+            if want[key] is None:
+                continue
+            check(torch.equal(got[key], want[key]), f"fsdp g1: rank "
+                  f"{r['coords']}'s first decode step differs from one "
+                  f"rank's ({key}: {max_err(got[key], want[key], 1e9):.3e})")
+    check(one["contiguous"]["served"] == one["paged"]["served"],
+          "fsdp g1: one rank's tokens differ contiguous and paged")
+
+
+def phase_fsdp(smi, dp_steps=None):
+    """FSDP parameter storage (``strategy="fsdp_tp"``) on a world of
+    FSDP_WORLD gloo ranks on the card at (data FSDP_WORLD), against one
+    rank: (g1)-(g4) of the module docstring. ``dp_steps``: the dp phase's
+    ranks' median bf16 step seconds on the same cut (``phase_dp``), set
+    beside (g3)'s. Returns (g1)'s launch counts, summed over the ranks
+    and modes."""
+    import shutil
+    from repro_torch.bridge import init_params, meta_params
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.world import spawn_world
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel.check import bytes_held
+    from repro_torch.train.loop import _start
+    check(not torch.backends.cuda.matmul.allow_tf32, "fsdp: TF32 is on")
+    t0 = time.perf_counter()
+    cfg = fsdp_serve_cfg()
+    phase("fsdp", "setup", f"{cfg.name}: {cfg.n_layers} of 40 layers, "
+          f"{cfg.param_count() / 1e9:.3f} B params, bf16; a world of "
+          f"{FSDP_WORLD} ranks on the card at (data {FSDP_WORLD}) under "
+          f"strategy fsdp_tp (launch.world.spawn_world); {FSDP_REQUESTS} of "
+          f"phase 4's requests, {FSDP_NEW_TOKENS} new tokens each")
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda"), device="cuda")
+    one = fsdp_serve(lm)
+    one_peak = torch.cuda.max_memory_allocated()
+    whole = bytes_held(meta_params(cfg))
+    del lm
+    free_device_memory()
+    work = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    try:
+        t1 = time.perf_counter()
+        ranks = spawn_world(FSDP_WORLD, _fsdp_rank, work,
+                            devices=["cuda:0"] * FSDP_WORLD)
+        world_s = time.perf_counter() - t1
+        r0 = ranks[0]
+        # (g1)
+        served = {}
+        for r in ranks:
+            for mode in ("contiguous", "paged"):
+                y, o = r["g1"][mode], one[mode]
+                for k, v in y["counts"].items():
+                    served[k] = served.get(k, 0) + v
+                dec = sum(y["decode_ms"]) / 1e3
+                pre = sum(y["prefill_ms"]) / 1e3
+                g = {k: y["gathers"].get(k, 0.0) for k in (
+                    "table decode", "layer decode", "table prefill",
+                    "layer prefill")}
+                share = (g["table decode"] + g["layer decode"]) / dec
+                phase("fsdp", "g1", f"rank {r['coords']} ({r['backend']}, "
+                      f"{r['device']}) {mode}: {len(y['served'])} requests; "
+                      f"prefill {_median(y['prefill_ms']):.3f} ms a group "
+                      f"(median of {len(y['prefill_ms'])}; one rank "
+                      f"{_median(o['prefill_ms']):.3f}), decode "
+                      f"{_median(y['decode_ms']):.3f} ms a step (median of "
+                      f"{len(y['decode_ms'])}; one rank "
+                      f"{_median(o['decode_ms']):.3f}); gathers: the head "
+                      f"table {g['table decode']:.4f} s and the layers "
+                      f"{g['layer decode']:.4f} s of {dec:.4f} s of decode "
+                      f"steps ({share:.1%}), the head table "
+                      f"{g['table prefill']:.4f} s and the layers "
+                      f"{g['layer prefill']:.4f} s of {pre:.4f} s of "
+                      f"prefill groups; launches "
+                      f"{y['counts']}; {smi}")
+            phase("fsdp", "g1", f"rank {r['coords']}: params "
+                  f"{r['g1_held']} B measured (memory_allocated), "
+                  f"{r['g1_counted']} B counted (meta_params), whole "
+                  f"{whole} B ({r['g1_counted'] / whole:.4f} of it); peak "
+                  f"{r['g1_peak'] / 2**30:.2f} GiB (one rank "
+                  f"{one_peak / 2**30:.2f}); {smi}")
+            check(abs(r["g1_held"] - r["g1_counted"])
+                  <= 0.01 * r["g1_counted"], f"fsdp g1: rank "
+                  f"{r['coords']} holds {r['g1_held']} B, counted "
+                  f"{r['g1_counted']}")
+            check(r["g1_counted"] <= 0.51 * whole, f"fsdp g1: a rank "
+                  f"stores {r['g1_counted']} B of {whole}")
+        check_fsdp_serve(one, ranks, smi)
+        phase("fsdp", "g1", "every rank's tokens and finish order equal one "
+              "rank's, contiguous and paged; the first window's prefill "
+              "logits, the first decode step's embedding, logits and layer "
+              "0's K/V equal one rank's bit for bit")
+        # (g2)
+        g2s = [r["g2"] for r in ranks]
+        worst = max(g2s, key=lambda f: f["g_ratio"])
+        pworst = max(g2s, key=lambda f: f["p_ratio"])
+        g2 = r0["g2"]
+        phase("fsdp", "g2", f"fp32 {fsdp_g2_run().model.name}: loss "
+              f"{FSDP_WORLD} ranks {g2['loss']:.6f} vs one "
+              f"{g2['loss_one']:.6f} (rel err {g2['loss_err']:.3e}, tol "
+              f"{TRAIN_LOSS_RTOL}); grad norm {g2['norm']:.6f} vs "
+              f"{g2['norm_one']:.6f} (rel err {g2['norm_err']:.3e}); "
+              f"{g2['leaves']} gradient leaves, {g2['split']} stored as "
+              f"slices: worst abs err {max(f['g_abs'] for f in g2s):.3e}, "
+              f"worst err / bound {worst['g_ratio']:.3f} ({worst['g_leaf']});"
+              f" updated params: worst err / bound {pworst['p_ratio']:.3f} "
+              f"({pworst['p_leaf']}; {sum(f['widened'] for f in g2s)} "
+              f"entries held to 2 x lr); the {g2['n_whole']} leaves every "
+              "rank stores whole: " + ("gradients equal bit for bit on the "
+                                       "ranks" if all(f["whole_equal"] for f
+                                                      in g2s) else
+                                       "gradients differ ("
+                                       + ", ".join(f["unequal"] for f in g2s)
+                                       + ")") + f"; {smi}")
+        for r in ranks:
+            f = r["g2"]
+            check(f["metrics"] == g2["metrics"], "fsdp g2: the ranks' "
+                  "metrics differ")
+            check(math.isfinite(f["loss"]) and f["loss_err"]
+                  <= TRAIN_LOSS_RTOL, f"fsdp g2: loss {f['loss']!r} vs one "
+                  f"{f['loss_one']!r}, rel err {f['loss_err']:.3e}")
+            check(f["norm_err"] <= TRAIN_RTOL, f"fsdp g2: grad norm "
+                  f"{f['norm']!r} vs {f['norm_one']!r}, rel err "
+                  f"{f['norm_err']:.3e} > {TRAIN_RTOL}")
+            check(f["g_ratio"] <= 1.0, f"fsdp g2: rank {r['coords']}: "
+                  f"gradient {f['g_leaf']} off by {f['g_ratio']:.2f} x its "
+                  "bound")
+            check(f["p_ratio"] <= 1.0, f"fsdp g2: rank {r['coords']}: "
+                  f"updated param {f['p_leaf']} off by {f['p_ratio']:.2f} x "
+                  "its bound")
+            check(f["whole_equal"], f"fsdp g2: the gradient of "
+                  f"{f['unequal']}, stored whole by every rank, differs "
+                  "between the ranks")
+            check(abs(f["held"] - f["counted"]) <= 0.01 * f["counted"],
+                  f"fsdp g2: a rank's params take {f['held']} B, counted "
+                  f"{f['counted']} B")
+        phase("fsdp", "g2", "bytes a rank: params " + ", ".join(
+            str(r["g2"]["held"]) for r in ranks) + f" B measured "
+            f"(memory_allocated), {g2['counted']} B counted, whole "
+            f"{g2['whole']} B ({g2['counted'] / g2['whole']:.4f} of it), "
+            f"{g2['one_held']} B measured on one rank; moments a rank "
+            f"{g2['moment_bytes']} B; control, TF32 products in the world: "
+            f"worst err / bound {r0['tf32']:.3f}, must exceed "
+            f"{TF32_CONTROL_MIN}")
+        check(r0["tf32"] > TF32_CONTROL_MIN, f"fsdp g2: with TF32 on, the "
+              f"world's gradients land at {r0['tf32']:.3f} of the bound")
+        # (g3)
+        tp = ("the dp phase's tp + ZeRO-1 rank on the same cut, this run: "
+              + ", ".join(f"{x:.4f}" for x in dp_steps) + " s"
+              if dp_steps else "the dp phase did not run in this call")
+        for r in ranks:
+            med = statistics.median(r["times"])
+            sp = {k: statistics.median(v) for k, v in r["spent"].items()}
+            phase("fsdp", "time", f"rank {r['coords']} ({r['backend']}): "
+                  f"bf16 fsdp_tp step median {med:.4f} s (of "
+                  f"{', '.join(f'{x:.4f}' for x in r['times'])}): the "
+                  f"layers' and tables' gathers {sp['all_gather']:.4f} s = "
+                  f"{sp['all_gather'] / med:.1%}, their backward's "
+                  f"all-reduces {sp['all_reduce']:.4f} s = "
+                  f"{sp['all_reduce'] / med:.1%}, reduce_grads (the leaves "
+                  f"stored whole) {sp['reduce_grads']:.4f} s; {tp}; {smi}")
+        g3 = r0["g3"]
+        for r in ranks:
+            check(r["g3"]["pre"] == g3["pre"] and r["g3"]["next"]
+                  == g3["next"], "fsdp g3: the ranks' losses differ")
+        pre = g3["pre"]
+        check(g3["restarts"] == 1 and len(pre) == DP_STEPS + 2,
+              f"fsdp g3: {g3['restarts']} restarts, {len(pre)} losses")
+        check(pre[6:8] == pre[4:6], f"fsdp g3: the steps replayed after the "
+              f"preemption give {pre[6:8]}, first {pre[4:6]}")
+        g3r = fsdp_g3_run()
+        state, start, step_fn = _start(g3r, os.path.join(work, "pre"),
+                                       "cuda")
+        _, met = step_fn(state, synthetic_batches(g3r, "cuda")(start))
+        one_next = float(met["loss"])
+        del state, step_fn
+        free_device_memory()
+        next_err = abs(one_next - g3["next"]) / abs(g3["next"])
+        check(start == g3["start"] == DP_STEPS and next_err <= DP_NEXT_RTOL,
+              f"fsdp g3: step {start}'s loss on one rank from the world's "
+              f"checkpoint {one_next!r} vs the world's {g3['next']!r}, rel "
+              f"err {next_err:.3e} > {DP_NEXT_RTOL}")
+        phase("fsdp", "g3", f"bf16 train_loop(mesh=): {DP_STEPS} steps with "
+              f"checkpoints every 4 and a preemption before step 6: "
+              f"{g3['restarts']} restart, steps 4-5 replayed bit for bit "
+              f"({len(pre)} losses); step {start} from its last checkpoint "
+              f"on one rank {one_next:.6f} vs the world {g3['next']:.6f} "
+              f"(rel err {next_err:.3e}, tol {DP_NEXT_RTOL}); losses "
+              + ", ".join(f"{x:.4f}" for x in pre)
+              + f"; the loop {g3['loop_s']:.1f} s; {smi}")
+        # (g4)
+        g4 = r0["g4"]
+        one_drops = r0["g4_one_drops"]
+        world_drops = sum(r["g4"]["drops"] for r in ranks)
+        check(one_drops > 0 and all(r["g4_one_drops"] == one_drops
+                                    for r in ranks),
+              "fsdp g4: one rank's drops "
+              f"{[r['g4_one_drops'] for r in ranks]}")
+        check(world_drops == one_drops, f"fsdp g4: the world dropped "
+              f"{world_drops} assignments, one rank {one_drops}")
+        for r in ranks:
+            f = r["g4"]
+            check(f["loss_err"] <= TRAIN_LOSS_RTOL, f"fsdp g4: loss "
+                  f"{f['loss']!r} vs one {f['loss_one']!r}, rel err "
+                  f"{f['loss_err']:.3e}")
+            check(f["g_ratio"] <= 1.0, f"fsdp g4: rank {r['coords']}: "
+                  f"gradient {f['g_leaf']} off by {f['g_ratio']:.2f} x its "
+                  "bound")
+        phase("fsdp", "g4", f"{fsdp_g4_run().model.name}, fp32, capacity "
+              f"factor {DP_CAPACITY_FACTOR}, {g4['split']} leaves stored as "
+              f"slices: {one_drops} assignments dropped on one rank, "
+              f"{world_drops} over the world's ranks; loss {g4['loss']:.6f} "
+              f"vs {g4['loss_one']:.6f} (rel err {g4['loss_err']:.3e}); "
+              f"{g4['leaves']} gradient leaves, worst err / bound "
+              f"{max(r['g4']['g_ratio'] for r in ranks):.3f} "
+              f"({g4['g_leaf']}; rtol {TRAIN_RTOL}, atol "
+              f"{TRAIN_ATOL['dp jamba']} x max(1, leaf max))")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for r in ranks:
+        check(not any(r["launches"].values()), f"fsdp: rank {r['coords']} "
+              f"launched kernels {r['launches']} in training")
+    phase("fsdp", "done", f"g1 launches {served} over the ranks and modes; "
+          f"training launches {[r['launches'] for r in ranks]}; world "
+          f"{world_s:.1f} s; phase {time.perf_counter() - t0:.1f} s; {smi}")
+    return served
+
+
+def clock(t0, what):
+    """Print the script's seconds so far, after ``what``: the phases'
+    share of the time limit."""
+    phase("clock", what, f"{time.perf_counter() - t0:.1f} s into the script")
+
+
 def main():
+    t0 = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -3411,6 +3918,7 @@ def main():
     free_device_memory()
     per_call = phase_launches_per_call()
     free_device_memory()
+    clock(t0, "kernels")
     launches, by_path, served = {}, {}, {}
     for arch, layers, smoke, why in PATHS:
         served[arch] = phase_serve(arch, layers, smoke, why, smi)
@@ -3426,23 +3934,33 @@ def main():
         if arch in ("musicgen-large", "mamba2-1.3b"):
             reference_check(arch)
             free_device_memory()
+    clock(t0, "serve")
     total, by_run = phase_parallel(served, smi)
     for k, v in total.items():
         launches[k] += v
     free_device_memory()
+    clock(t0, "parallel")
     for k, v in phase_dsp(smi).items():
         launches[k] += v
     free_device_memory()
+    clock(t0, "dsp")
     rows = phase_times(launches, by_path["kimi-k2-1t-a32b"], by_run,
                        served["arctic-480b"].moe_counts, smi, per_call)
     free_device_memory()
+    clock(t0, "times")
     phase_train(smi)
     free_device_memory()
+    clock(t0, "train")
     phase_elastic(smi)
     free_device_memory()
-    phase_dp(smi)
+    dp_steps = phase_dp(smi)
     free_device_memory()
+    clock(t0, "dp")
     phase_tp_train(smi)
+    free_device_memory()
+    clock(t0, "tp-train")
+    phase_fsdp(smi, dp_steps)
+    clock(t0, "fsdp")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

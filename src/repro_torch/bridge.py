@@ -20,6 +20,13 @@ whole stream, so a sharded model's weights are exactly the slices of the
 single-rank model's. Training under the ``model`` axis holds the same
 slices: ``ModelSplit`` takes a rank's slices of whole leaves (a
 checkpoint's, the moments) and joins them back into whole arrays.
+
+Under ``ParallelConfig(strategy="fsdp_tp")`` on a mesh with batch axes,
+a rank stores less: its ``model`` slice of each leaf, cut again along
+the dim that the ``fsdp_tp`` rules place on the batch axes
+(``parallel.fsdp.fsdp_plan``, ZeRO-1's cut): every leaf with an
+``embed`` dim that divides. ``storage_cuts`` gives both cuts; the
+forward passes gather the rest while a layer runs (``models.lm``).
 """
 from __future__ import annotations
 
@@ -30,9 +37,10 @@ import torch
 
 from repro_torch.models.lm import DTYPES, resolve_device, tree_leaves
 from repro_torch.parallel.collectives import all_gather
-from repro_torch.parallel.sharding import AXIS_MODEL, resolve_spec
+from repro_torch.parallel.fsdp import fsdp_plan, unflatten
+from repro_torch.parallel.sharding import AXIS_MODEL, leaf_axes, resolve_spec
 from repro_torch.parallel.tensor import TensorParallel, tensor_plan
-from repro_torch.train.optimizer import TrainState, unflatten
+from repro_torch.train.optimizer import TrainState
 
 # A leaf whose fp32 draw would exceed this is drawn in slices along its
 # leading (layer, expert) axes, straight into the leaf: arctic's stacked
@@ -67,63 +75,20 @@ def params_from_jax(tree, device=None, *, mesh=None, cfg=None,
     cross as an int16 view of their bits, so they arrive bit for bit. With
     ``mesh`` (``launch.mesh.Mesh``), the model's ``cfg`` and the
     ``ParallelConfig`` it will serve under (the default if None), a leaf
-    that serving splits keeps this rank's slice (``shard_leaf``)."""
+    keeps the slice this rank stores (``storage_cuts``)."""
     device = resolve_device(device)
     if mesh is not None and cfg is None:
         raise ValueError("params_from_jax(mesh=...) needs the model's cfg: "
                          "which leaves split depends on its head counts")
-    tp = tensor_plan(cfg, mesh, parallel) if mesh is not None else None
+    cuts = storage_cuts(cfg, mesh, parallel)
 
     def convert(path, a):
         a = np.asarray(a)
-        cut = shard_leaf(path, a.shape, mesh, tp) if mesh is not None \
-            else None
-        if cut is not None:
-            dim, lo, hi = cut
+        for dim, lo, hi in cuts(path, a.shape):
             a = a[(slice(None),) * dim + (slice(lo, hi),)]
         return _to_tensor(a, device)
 
     return _map_with_path(convert, tree)
-
-
-# logical axes by (parent, leaf name), as the reference's init functions
-# record them; the dense, shared and dense-residual MLPs share ``mlp``'s
-_AXES = {
-    "embed": ("codebooks", "vocab", "embed"),
-    "head": ("codebooks", "embed", "vocab"),
-    "attn/wq": ("embed", "heads"), "attn/wk": ("embed", "kv_heads"),
-    "attn/wv": ("embed", "kv_heads"), "attn/wo": ("heads", "embed"),
-    "attn/bq": ("heads",), "attn/bk": ("kv_heads",), "attn/bv": ("kv_heads",),
-    "mlp/w_in": ("embed", "mlp"), "mlp/w_gate": ("embed", "mlp"),
-    "mlp/w_out": ("mlp", "embed"),
-    "mamba/w_z": ("embed", "ssm_inner"), "mamba/w_x": ("embed", "ssm_inner"),
-    "mamba/w_B": ("embed", "ssm_state"), "mamba/w_C": ("embed", "ssm_state"),
-    "mamba/w_dt": ("embed", "ssm_inner"),
-    "mamba/conv_x": ("conv", "ssm_inner"),
-    "mamba/conv_B": ("conv", "ssm_state"),
-    "mamba/conv_C": ("conv", "ssm_state"),
-    "mamba/a_log": ("ssm_inner",), "mamba/d_skip": ("ssm_inner",),
-    "mamba/dt_bias": ("ssm_inner",), "mamba/w_out": ("ssm_inner", "embed"),
-    "moe/router": ("embed", "experts"),
-    "moe/w_in": ("experts", "embed", "expert_mlp"),
-    "moe/w_gate": ("experts", "embed", "expert_mlp"),
-    "moe/w_out": ("experts", "expert_mlp", "embed"),
-}
-
-
-def leaf_axes(path: str) -> tuple[str, ...]:
-    """The logical axes of the param leaf at ``path`` ('/'-joined), with
-    the leading ``layers`` axis of a stacked block leaf."""
-    parts = path.split("/")
-    name = parts[-1]
-    parent = parts[-2] if len(parts) > 1 else ""
-    if parent in ("dense_mlp", "shared_mlp"):
-        parent = "mlp"
-    if name.startswith("norm") or name.endswith("_norm"):
-        axes = ("norm",)                  # every rmsnorm scale
-    else:
-        axes = _AXES[f"{parent}/{name}" if parent else name]
-    return ("layers",) + axes if parts[0] == "blocks" else axes
 
 
 def param_axes(cfg):
@@ -161,6 +126,25 @@ def shard_leaf(path: str, shape, mesh, tp: TensorParallel):
     if not split:
         return None
     return (dim,) + tp.part(shape[dim])
+
+
+def storage_cuts(cfg, mesh, parallel=None):
+    """``cuts(path, full shape)``: the (dim, start, stop) cuts, in dim
+    order, of the slice of a leaf that this rank of ``mesh`` stores under
+    ``parallel`` (the default if None): its ``model`` slice
+    (``shard_leaf``), and under ``fsdp_tp`` ZeRO-1's cut over the batch
+    axes (``fsdp_plan``), which lies on another dim. No cut: whole."""
+    if mesh is None:
+        return lambda path, full: ()
+    tp = tensor_plan(cfg, mesh, parallel)
+    fsdp = fsdp_plan(cfg, mesh, parallel)
+
+    def cuts(path, full):
+        out = [shard_leaf(path, full, mesh, tp),
+               fsdp.part(path, full) if fsdp is not None else None]
+        return tuple(sorted(c for c in out if c is not None))
+
+    return cuts
 
 
 class ModelSplit:
@@ -300,33 +284,30 @@ def param_specs(cfg):
                        for i in range(cfg.pattern_period)}}
 
 
-def _fill_normal(out, std, generator, shape=None, keep=None):
+def _fill_normal(out, std, generator, shape=None, keep=()):
     """Draw a leaf of ``shape`` (``out``'s by default) from N(0, std^2)
     in fp32, in slices along the leading axes while a slice's fp32 draw
     exceeds DRAW_LIMIT_BYTES, into ``out``.
 
-    ``keep`` (dim, start, stop): ``out`` holds only that slice of the
-    leaf. Every slice of the whole leaf is still drawn, in the same order,
-    so the generator moves as for the whole leaf; what lies outside is
-    dropped. ``out`` None: draw and drop everything."""
+    ``keep``: cuts (dim, start, stop), one a dim: ``out`` holds only that
+    slice of the leaf. Every slice of the whole leaf is still drawn, in
+    the same order, so the generator moves as for the whole leaf; what
+    lies outside is dropped. ``out`` None: draw and drop everything."""
     shape = tuple(out.shape) if shape is None else tuple(shape)
     if len(shape) > 1 and math.prod(shape) * 4 > DRAW_LIMIT_BYTES:
+        lo, hi = next(((a, b) for d, a, b in keep if d == 0),
+                      (0, shape[0]))
+        sub = tuple((d - 1, a, b) for d, a, b in keep if d > 0)
         for j in range(shape[0]):
-            part, sub = None, None
-            if keep is None:
-                part = None if out is None else out[j]
-            elif keep[0] > 0:
-                part = None if out is None else out[j]
-                sub = (keep[0] - 1,) + tuple(keep[1:])
-            elif keep[1] <= j < keep[2] and out is not None:
-                part = out[j - keep[1]]
+            part = (out[j - lo] if out is not None and lo <= j < hi
+                    else None)
             _fill_normal(part, std, generator, shape[1:], sub)
         return
     draw = torch.randn(shape, generator=generator, dtype=torch.float32,
                        device=generator.device).mul_(std)
     if out is not None:
-        if keep is not None:
-            draw = draw.narrow(keep[0], keep[1], keep[2] - keep[1])
+        for dim, lo, hi in keep:
+            draw = draw.narrow(dim, lo, hi - lo)
         out.copy_(draw)
 
 
@@ -347,21 +328,20 @@ def _build(cfg, make):
     return params
 
 
-def _local(full, cut):
-    """The shape of a rank's slice ``cut`` (or None: whole) of ``full``."""
+def _local(full, cuts):
+    """The shape of a rank's slice ``cuts`` (none: whole) of ``full``."""
     local = list(full)
-    if cut is not None:
-        local[cut[0]] = cut[2] - cut[1]
+    for dim, lo, hi in cuts:
+        local[dim] = hi - lo
     return local
 
 
 def meta_params(cfg, *, mesh=None, parallel=None):
     """The param tree of ``cfg`` as meta tensors: shapes and dtypes only;
-    with ``mesh`` (and ``parallel``), the shapes this rank holds."""
-    tp = tensor_plan(cfg, mesh, parallel) if mesh is not None else None
+    with ``mesh`` (and ``parallel``), the shapes this rank stores."""
+    cuts = storage_cuts(cfg, mesh, parallel)
     return _build(cfg, lambda full, spec, path: torch.empty(
-        _local(full, None if tp is None
-               else shard_leaf(path, full, mesh, tp)),
+        _local(full, cuts(path, full)),
         dtype=spec[3] or DTYPES[cfg.dtype], device="meta"))
 
 
@@ -372,15 +352,15 @@ def init_params(cfg, generator: torch.Generator, device=None, *, mesh=None,
     leading ``R`` axis; the fan of a stacked weight is its per-layer
     ``shape[-2]``. Draws are fp32, then cast to the leaf's dtype. With
     ``mesh`` and the ``ParallelConfig`` the model will serve under (the
-    default if None), a leaf that serving splits keeps this rank's slice
-    of the same draws (``shard_leaf``)."""
+    default if None), a leaf keeps the slice of the same draws that this
+    rank stores (``storage_cuts``)."""
     device = resolve_device(device)
-    tp = tensor_plan(cfg, mesh, parallel) if mesh is not None else None
+    cuts = storage_cuts(cfg, mesh, parallel)
 
     def make(full, spec, path):
         shape, law, scale, dtype = spec
         dtype = dtype or DTYPES[cfg.dtype]
-        cut = shard_leaf(path, full, mesh, tp) if tp is not None else None
+        cut = cuts(path, full)
         local = _local(full, cut)
         if law == "zeros":
             return torch.zeros(local, dtype=dtype, device=device)

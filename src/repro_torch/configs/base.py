@@ -7,8 +7,9 @@ run in both packages. Of ``ParallelConfig``, serving across ranks
 (``models.lm.Runtime``) reads ``decode_kv_shard`` and
 ``attn_seq_parallel``; training reads ``remat``, ``microbatches``, the
 attention chunks and ``attn_impl``, and under a data mesh ``zero1``,
-``grad_compress_pod`` and ``strategy`` (``train.train_step``, which
-refuses ``fsdp_tp`` there).
+``grad_compress_pod`` and ``strategy`` (``train.train_step``; serving
+reads ``strategy`` too: ``fsdp_tp`` stores the params cut over the batch
+axes, ``Runtime.fsdp``).
 """
 from __future__ import annotations
 

@@ -21,6 +21,14 @@ autograd, each pattern repeat under ``torch.utils.checkpoint`` unless
 ``remat == "none"``: the counterpart of the reference's ``jax.checkpoint``
 with ``nothing_saveable`` around its scan body; with a ``Runtime`` it
 trains as one rank of its mesh under the same split.
+
+Under FSDP storage (``Runtime.fsdp``) the params are the rank's stored
+slices: each pass gathers a layer's leaves back to the ``tp`` layout
+just before the layer runs (inside the checkpointed repeat in training,
+so the backward gathers again), as the reference's ``_maybe_gather``
+does, and the ``head`` table where it is read; training gathers the
+``embed`` table too, and serving gathers the looked-up columns instead
+(``embed``'s ``shared_rows``).
 """
 from __future__ import annotations
 
@@ -37,7 +45,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.models.blocks import DECODE_BLOCK_S, block_apply, block_train
 from repro_torch.models.layers import rmsnorm
-from repro_torch.parallel.collectives import all_reduce
+from repro_torch.parallel.collectives import all_gather, all_reduce
+from repro_torch.parallel.fsdp import BatchCuts, fsdp_plan
 from repro_torch.parallel.sharding import AXIS_MODEL
 from repro_torch.parallel.tensor import (
     WHOLE, TensorParallel, decode_kv_shard, tensor_plan)
@@ -129,11 +138,20 @@ class Runtime:
     and ``shard_heads`` ask of GSPMD; the port splits only whole heads, so
     it pads none. The residual stream stays whole on every rank (the
     reference's ``shard_activations`` pins its batch to the data axes
-    only for GSPMD's sake), and ``block_axes``, the FSDP re-gather, has no
-    counterpart: the port serves under the "tp" rules.
+    only for GSPMD's sake), and every rank computes under the "tp" rules.
+    Under ``strategy="fsdp_tp"`` the params are stored cut over the batch
+    axes as well (``fsdp``), and ``LM`` gathers each layer back to the
+    "tp" layout while it runs: the reference's ``_maybe_gather`` over its
+    ``block_axes``.
     """
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     mesh: Any = None
+
+    def fsdp(self, cfg) -> BatchCuts | None:
+        """The cuts over the batch axes that ``cfg``'s params are stored
+        by on this mesh (``parallel.fsdp.fsdp_plan``), or None when they
+        are stored in the "tp" layout."""
+        return fsdp_plan(cfg, self.mesh, self.parallel)
 
     def decode_kv_shard(self, cfg) -> str:
         """"heads" (every rank holds every position) or "seq" (each rank
@@ -189,17 +207,47 @@ class LM(nn.Module):
              for i in range(self.period)]
             for r in range(self.repeats)]
 
+    def _gathered(self, tree, prefix: str, fsdp, lead: int = 0):
+        """``tree`` (the leaves at ``prefix``) in the ``tp`` layout: each
+        stored slice that ``fsdp`` cuts is gathered (``BatchCuts.gather``;
+        ``lead`` 1 for a layer's views of stacked leaves)."""
+        if fsdp is None:
+            return tree
+        return {k: self._gathered(v, f"{prefix}/{k}", fsdp, lead)
+                if isinstance(v, dict) else fsdp.gather(f"{prefix}/{k}", v,
+                                                        lead)
+                for k, v in tree.items()}
+
+    def _table(self, name: str, rt: Runtime | None):
+        """The ``embed`` or ``head`` table in the ``tp`` layout."""
+        t = self.params[name]
+        fsdp = rt.fsdp(self.cfg) if rt is not None else None
+        return t if fsdp is None else fsdp.gather(name, t)
+
     # ------------------------------------------------------------ embed
-    def embed(self, batch, rt: Runtime | None = None):
+    def embed(self, batch, rt: Runtime | None = None, *,
+              shared_rows: bool = False):
         """batch: tokens (B, S[, ncb]) int; optional patches (B, Np, d).
 
         Under ``rt``'s vocab split each rank holds rows [lo, hi) of every
         codebook's table: a token outside them reads 0, and each
         codebook's lookup is summed over ``model`` on its own (x + 0 is
         exact) before the codebooks add in order, as on one rank, so the
-        result equals the one-rank embedding bit for bit."""
+        result equals the one-rank embedding bit for bit.
+
+        Under FSDP storage the table's ``d`` columns are cut over batch
+        axes. Training gathers the table. With ``shared_rows`` (the
+        serving passes, where every rank embeds the same tokens, under
+        ``no_grad``) each rank looks up its own columns and the columns
+        are gathered: every output column is its table column's entries
+        (summed over the codebooks in order), so this is the whole
+        table's lookup bit for bit, and the table never crosses."""
         cfg = self.cfg
-        emb = self.params["embed"]                     # (ncb, Vp, d)
+        fsdp = rt.fsdp(cfg) if rt is not None else None
+        by_column = (shared_rows and fsdp is not None
+                     and fsdp.cuts["embed"] is not None)
+        emb = (self.params["embed"] if by_column
+               else self._table("embed", rt))          # (ncb, Vp, d[/n])
         tokens = batch["tokens"].to(self.device).long()
         tp = rt.tensor(cfg) if rt is not None else WHOLE
         ncb = cfg.n_codebooks
@@ -222,41 +270,47 @@ class LM(nn.Module):
             parts = [F.embedding(per_cb[..., c], emb[c])
                      for c in range(emb.shape[0])]
         if ncb > 1:
-            x = torch.zeros(tokens.shape[:2] + (cfg.d_model,),
+            x = torch.zeros(tokens.shape[:2] + (emb.shape[-1],),
                             dtype=emb.dtype, device=self.device)
             for c in range(ncb):
                 x = x + parts[c]
         else:
             x = parts[0]
+        if by_column:
+            x = all_gather(x, -1, fsdp.group("embed"))
         if cfg.vision_stub and "patches" in batch:
             patches = batch["patches"].to(self.device, x.dtype)
             x = torch.cat([patches, x], dim=1)
         return x
 
-    def logits(self, x, rt: Runtime | None = None):
+    def logits(self, x, rt: Runtime | None = None, *, join: bool = True):
         """Over ``vocab_padded``: greedy argmax sees the padded columns too,
         as in the JAX engine. Under ``rt``'s vocab split each rank's
-        columns are gathered over ``model`` in column order."""
-        head = self.params["head"]                     # (ncb, d, Vp[/n])
+        columns are gathered over ``model`` in column order (``join``;
+        else the rank's own columns)."""
+        head = self._table("head", rt)                 # (ncb, d, Vp[/n])
         if self.cfg.n_codebooks > 1:
             out = torch.einsum("bsd,cdv->bscv", x, head)
         else:
             out = x @ head[0]
         tp = rt.tensor(self.cfg) if rt is not None else WHOLE
-        return tp.gather(out, -1) if tp.vocab else out
+        return tp.gather(out, -1) if tp.vocab and join else out
 
     # ------------------------------------------------------------- train
     def backbone(self, x, positions, parallel: ParallelConfig, data=None,
-                 tp: TensorParallel = WHOLE):
+                 tp: TensorParallel = WHOLE, fsdp=None):
         """Training forward of (B, S, d) through every layer: returns (x,
         {"moe_lb_loss", "moe_z_loss"} fp32 sums over the layers). The
         stacked leaves are sliced inside the graph on every call.
-        ``data`` and ``tp``: as in ``loss``."""
+        ``data`` and ``tp``: as in ``loss``; ``fsdp``: the storage plan
+        (``Runtime.fsdp``), whose slices each repeat gathers inside its
+        checkpoint, so the backward gathers them again."""
         cfg = self.cfg
 
         def repeat(x, lb, z, layer):
             for i in range(self.period):
-                x, aux = block_train(layer[i], cfg, parallel, x, positions,
+                p = self._gathered(layer[i], f"blocks/pos{i}", fsdp, 1)
+                x, aux = block_train(p, cfg, parallel, x, positions,
                                      i, data, tp)
                 if aux:
                     lb = lb + aux["moe_lb_loss"]
@@ -317,16 +371,17 @@ class LM(nn.Module):
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
         x, aux = self.backbone(x, positions, parallel or ParallelConfig(),
-                               data, tp)
+                               data, tp,
+                               rt.fsdp(cfg) if rt is not None else None)
         x = rmsnorm(self.params["final_norm"], x, cfg.norm_eps)
         if cfg.vision_stub and "patches" in batch:
             x = x[:, batch["patches"].shape[1]:]  # loss on text positions
         targets = batch["targets"].to(self.device).long()
         mask = batch["mask"].to(self.device, torch.float32)
         if tp.vocab:
-            lse, tgt = self._split_vocab_ce(tp.enter(x), targets, tp)
+            lse, tgt = self._split_vocab_ce(tp.enter(x), targets, rt)
         else:
-            logits = self.logits(x).float()
+            logits = self.logits(x, rt).float()
             lse = torch.logsumexp(logits, dim=-1)
             tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
         ce = lse - tgt                                    # (B, S[, ncb])
@@ -344,12 +399,13 @@ class LM(nn.Module):
                    "z": (lse.square() * mask).sum() / denom}
         return loss, {k: v.detach() for k, v in metrics.items()}
 
-    def _split_vocab_ce(self, x, targets, tp: TensorParallel):
+    def _split_vocab_ce(self, x, targets, rt: Runtime):
         """(lse, target logit), each (B, S[, ncb]) fp32, over the whole
         vocab, from this rank's ``vocab_padded`` columns of the head: the
         max is a constant shift (its gradient cancels), so it is taken
         detached."""
-        logits = self.logits(x).float()              # (..., V / n) local
+        tp = rt.tensor(self.cfg)
+        logits = self.logits(x, rt, join=False).float()  # (..., V / n)
         lo, hi = tp.vocab_rows(self.cfg)
         m = all_reduce(logits.detach().amax(dim=-1), tp.group,
                        dist.ReduceOp.MAX)
@@ -369,12 +425,14 @@ class LM(nn.Module):
         caches {"pos{i}": ...} in the module's layouts with B rows and, for
         attention, S positions), on every rank of ``rt``'s mesh: its caches
         hold the rank's KV and Mamba2 heads (``Runtime.tensor``)."""
-        x = self.embed(batch, rt)
+        x = self.embed(batch, rt, shared_rows=True)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
+        fsdp = rt.fsdp(self.cfg) if rt is not None else None
         per_pos = [[] for _ in range(self.period)]
         for layer in self._layers:
             for i, p in enumerate(layer):
+                p = self._gathered(p, f"blocks/pos{i}", fsdp, 1)
                 x, cache = block_apply(p, self.cfg, x, positions, i, rt=rt)
                 per_pos[i].append(cache)
         x = rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps)
@@ -400,10 +458,12 @@ class LM(nn.Module):
         Writes each row's new K/V, conv tails and SSM state into ``caches``
         in place and returns (logits (B, [ncb,] Vp), caches).
         """
-        x = self.embed({"tokens": tokens}, rt)
+        x = self.embed({"tokens": tokens}, rt, shared_rows=True)
         positions = lengths.long()[:, None]
+        fsdp = rt.fsdp(self.cfg) if rt is not None else None
         for r, layer in enumerate(self._layers):
             for i, p in enumerate(layer):
+                p = self._gathered(p, f"blocks/pos{i}", fsdp, 1)
                 cache = tree_map(lambda t, r=r: t[r], caches[f"pos{i}"])
                 x, _ = block_apply(p, self.cfg, x, positions, i, rt=rt,
                                    cache=cache, lengths=lengths,

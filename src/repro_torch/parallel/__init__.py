@@ -11,7 +11,9 @@ those beside one rank's results for the card tests and the smoke. The
 mesh comes from ``launch.mesh``.
 
 ``compression`` is the int8 cross-pod gradient exchange of
-data-parallel training (``train.train_step``). The reference's
+data-parallel training (``train.train_step``), and ``fsdp`` the cut of
+each param leaf over the batch axes: ZeRO-1's moments and, under
+``strategy="fsdp_tp"``, the stored params. The reference's
 ``compat.py`` only bridges JAX API versions (and
 ``tpu_compiler_params``), so it has no counterpart.
 """

@@ -30,18 +30,22 @@ with three ``torch.autograd.Function``s, the transposes that GSPMD
 applies to the reference's ``psum`` and ``all_gather``: ``row_sum`` (SUM
 forward, identity backward), ``enter`` (identity forward, SUM of the
 gradient backward, at the entry of every split region) and ``gather``
-(all-gather forward, this rank's slice of the gradient backward). Without
-autograd (the serving passes run under ``no_grad``) each is the plain
-collective, bit for bit.
+(all-gather forward, this rank's slice of the gradient backward). FSDP
+storage (``fsdp_gather``) all-gathers a stored slice over batch axes,
+where every rank computes with the whole leaf on its own rows: its
+backward sums the gradient over the group, then keeps this rank's slice
+(``reduce_scatter``). Without autograd (the serving passes run under
+``no_grad``) each is the plain collective, bit for bit.
 
 Transport: under NCCL, device tensors go on the wire. Under gloo, whose
 send, recv and all_gather take host tensors, every collective here moves
-a CUDA tensor through a host copy: ``gloo_transport``. Gloo's all_reduce
-would take a CUDA tensor, but it too copies it to host memory and back,
-so the reductions stage through the same copy as the rest and the
-transport has one rule. That is how the ranks of a one-card world (NCCL
-refuses two ranks on one card) exchange data; the compute stays on the
-card.
+a CUDA tensor through a host copy in pinned memory: ``gloo_transport``,
+``_wire``; an all-gather copies each rank's part straight into its
+place on the device. Gloo's all_reduce would take a CUDA tensor, but it
+too copies it to host memory and back, so the reductions stage through
+the same copy as the rest and the transport has one rule. That is how
+the ranks of a one-card world (NCCL refuses two ranks on one card)
+exchange data; the compute stays on the card.
 """
 from __future__ import annotations
 
@@ -63,10 +67,10 @@ def gloo_transport(group) -> bool:
 
 
 def _wire(t, group):
-    """The tensor that goes on the wire: a host copy of a CUDA tensor under
-    gloo, else ``t`` itself (contiguous)."""
+    """The tensor that goes on the wire: a copy of a CUDA tensor in pinned
+    host memory under gloo, else ``t`` itself (contiguous)."""
     if t.is_cuda and gloo_transport(group):
-        return t.cpu()
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
     return t.contiguous()
 
 
@@ -87,10 +91,38 @@ def all_gather(t, dim: int, group, device=None):
     if n == 1:
         return t if device is None else t.to(device)
     w = _wire(t, group)
-    parts = [torch.empty_like(w) for _ in range(n)]
+    # on the wire tensor's own device: the card's under NCCL, pinned host
+    # memory under gloo staging a CUDA tensor, plain host memory else
+    parts = [torch.empty(w.shape, dtype=w.dtype, device=w.device,
+                         pin_memory=w.is_pinned()) for _ in range(n)]
     dist.all_gather(parts, w, group=group)
-    return torch.cat(parts, dim=dim).to(t.device if device is None
-                                        else device)
+    device = t.device if device is None else torch.device(device)
+    if parts[0].device == device:
+        return torch.cat(parts, dim=dim)
+    # staged through host memory: each part straight into its place
+    shape = list(w.shape)
+    shape[dim] *= n
+    out = torch.empty(shape, dtype=w.dtype, device=device)
+    for i, part in enumerate(parts):
+        out.narrow(dim, i * w.shape[dim], w.shape[dim]).copy_(part)
+    return out
+
+
+def reduce_scatter(t, dim: int, group):
+    """This rank's slice along ``dim`` of the SUM of ``t`` over ``group``
+    (``t`` itself over one rank): a reduce-scatter under NCCL; under
+    gloo, which has none, an all-reduce, then a copy of the slice."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t
+    size, i = t.shape[dim] // n, dist.get_rank(group)
+    if gloo_transport(group):
+        return _fresh_sum(t, group).narrow(dim, i * size, size).clone()
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((size,) + src.shape[1:], dtype=t.dtype,
+                      device=t.device)
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim)
 
 
 # ------------------------------------------------ differentiable collectives
@@ -148,6 +180,21 @@ class _Gather(torch.autograd.Function):
         return grad.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None
 
 
+class _FsdpGather(torch.autograd.Function):
+    """All-gather of stored slices along ``dim`` forward; the gradient of
+    the whole leaf, summed over ``group`` (each rank's covers its own
+    rows), narrowed to this rank's slice backward."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter(grad, ctx.dim, ctx.group), None, None
+
+
 def _tracked(t) -> bool:
     """Whether autograd records an operation on ``t``."""
     return torch.is_grad_enabled() and t.requires_grad
@@ -170,6 +217,13 @@ def enter(t, group):
 def gather(t, dim: int, group):
     """``all_gather`` along ``dim``, whose gradient is this rank's slice."""
     return _Gather.apply(t, dim, group) if _tracked(t) else all_gather(
+        t, dim, group)
+
+
+def fsdp_gather(t, dim: int, group):
+    """``all_gather`` of stored slices along ``dim``, whose gradient is
+    summed over ``group`` and narrowed to this rank's slice."""
+    return _FsdpGather.apply(t, dim, group) if _tracked(t) else all_gather(
         t, dim, group)
 
 

@@ -1,11 +1,11 @@
 """Logical-axis placement rules (``repro.parallel.sharding``).
 
-Every param leaf carries a tuple of *logical* axis names
-(``bridge.param_axes``, the port's copy of the axes that the reference's
-``Scope.param`` records). A rule table per strategy maps logical names to
-mesh axes, and ``resolve_spec`` applies it with the reference's size
-guards, so one model runs on a 1-rank mesh, the 16x16 production pod and
-the 2x16x16 multi-pod mesh.
+Every param leaf carries a tuple of *logical* axis names (``leaf_axes``,
+the port's copy of the axes that the reference's ``Scope.param``
+records; ``bridge.param_axes`` lays them out as the param tree). A rule
+table per strategy maps logical names to mesh axes, and ``resolve_spec``
+applies it with the reference's size guards, so one model runs on a
+1-rank mesh, the 16x16 production pod and the 2x16x16 multi-pod mesh.
 
 Strategies
 ----------
@@ -52,6 +52,46 @@ _FSDP_EXTRA: dict[str, object] = {
     # storage only; on the multi-pod mesh the pod axis joins the shard
     "embed": ("pod", "data"),
 }
+
+
+# logical axes by (parent, leaf name), as the reference's init functions
+# record them; the dense, shared and dense-residual MLPs share ``mlp``'s
+_AXES = {
+    "embed": ("codebooks", "vocab", "embed"),
+    "head": ("codebooks", "embed", "vocab"),
+    "attn/wq": ("embed", "heads"), "attn/wk": ("embed", "kv_heads"),
+    "attn/wv": ("embed", "kv_heads"), "attn/wo": ("heads", "embed"),
+    "attn/bq": ("heads",), "attn/bk": ("kv_heads",), "attn/bv": ("kv_heads",),
+    "mlp/w_in": ("embed", "mlp"), "mlp/w_gate": ("embed", "mlp"),
+    "mlp/w_out": ("mlp", "embed"),
+    "mamba/w_z": ("embed", "ssm_inner"), "mamba/w_x": ("embed", "ssm_inner"),
+    "mamba/w_B": ("embed", "ssm_state"), "mamba/w_C": ("embed", "ssm_state"),
+    "mamba/w_dt": ("embed", "ssm_inner"),
+    "mamba/conv_x": ("conv", "ssm_inner"),
+    "mamba/conv_B": ("conv", "ssm_state"),
+    "mamba/conv_C": ("conv", "ssm_state"),
+    "mamba/a_log": ("ssm_inner",), "mamba/d_skip": ("ssm_inner",),
+    "mamba/dt_bias": ("ssm_inner",), "mamba/w_out": ("ssm_inner", "embed"),
+    "moe/router": ("embed", "experts"),
+    "moe/w_in": ("experts", "embed", "expert_mlp"),
+    "moe/w_gate": ("experts", "embed", "expert_mlp"),
+    "moe/w_out": ("experts", "expert_mlp", "embed"),
+}
+
+
+def leaf_axes(path: str) -> tuple[str, ...]:
+    """The logical axes of the param leaf at ``path`` ('/'-joined), with
+    the leading ``layers`` axis of a stacked block leaf."""
+    parts = path.split("/")
+    name = parts[-1]
+    parent = parts[-2] if len(parts) > 1 else ""
+    if parent in ("dense_mlp", "shared_mlp"):
+        parent = "mlp"
+    if name.startswith("norm") or name.endswith("_norm"):
+        axes = ("norm",)                  # every rmsnorm scale
+    else:
+        axes = _AXES[f"{parent}/{name}" if parent else name]
+    return ("layers",) + axes if parts[0] == "blocks" else axes
 
 
 def logical_rules(strategy: str) -> dict[str, object]:

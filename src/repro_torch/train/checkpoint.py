@@ -15,14 +15,16 @@ map of str keys to int, str and list of str): the card's environment is
 not known to carry the ``msgpack`` package.
 
 Checkpoints stay sharding-agnostic, as the reference's are: a leaf is
-always saved whole. Under a mesh (``mesh=``) every rank calls
-``save``: the ZeRO-1 moment slices (``zero=``) are gathered over the
-batch axes first, then the slices over ``model`` (``split=``) of the
-params and moments, rank 0 writes and makes the one atomic rename, and
-every rank waits on a barrier. On restore every rank reads the whole
-leaves and keeps its slices, so a directory written by a world restores
-on one device, in the JAX package or in a world of another shape, and
-the other way round.
+always saved whole. Under a mesh (``mesh=``) every rank calls ``save``,
+which joins one leaf at a time, a stacked leaf one layer at a time:
+the slices over the batch axes (``zero=``: the moments, and the params
+too under FSDP storage) first, then those over ``model`` (``split=``),
+the last join landing on the host. Rank 0 writes each leaf as it comes
+and makes the one atomic rename, and every rank waits on a barrier. On
+restore every rank reads the whole leaves and keeps its slices, cut on
+the host, so a directory written by a world restores on one device, in
+the JAX package or in a world of another shape or strategy, and the
+other way round.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models.lm import sorted_tree_leaves
+from repro_torch.parallel.collectives import all_gather
 from repro_torch.train.optimizer import TrainState
 
 _BF16 = "bfloat16"
@@ -201,42 +204,75 @@ def save(path: str, step: int, state: TrainState, keep: int = 3, *,
          mesh=None, zero=None, split=None) -> str:
     """Save ``state`` at ``path/step_<step>``; returns the final dir.
     Under ``mesh`` every rank calls it (with ``zero``, the
-    ``optimizer.Zero1`` its moments are sliced by, and ``split``, the
-    ``bridge.ModelSplit`` its params and moments are sliced by over
-    ``model``, each None where it does not apply) and rank 0 writes."""
-    if zero is not None:
-        state = TrainState(state.step, state.params,
-                           zero.gather_tree(state.m),
-                           zero.gather_tree(state.v))
-    if split is not None:
-        state = TrainState(state.step, *(split.gather_tree(t, "cpu") for t in (
-            state.params, state.m, state.v)))
+    ``parallel.fsdp.BatchCuts`` its moments, and stored params, are cut
+    by, and ``split``, the ``bridge.ModelSplit`` its params and moments
+    are sliced by over ``model``, each None where it does not apply) and
+    rank 0 writes, a leaf at a time: a cut leaf is joined on the host
+    (``_joined``), a stacked one a layer at a time."""
+    writer = mesh is None or dist.get_rank() == 0
+    leaves = state_leaves(state)
     final = os.path.join(path, f"step_{step}")
-    if mesh is None or dist.get_rank() == 0:
-        _write(path, step, state, keep)
+    tmp = final + ".tmp"
+    if writer:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
+    for i, (name, leaf) in enumerate(leaves):
+        joins = [] if isinstance(leaf, int) else _joins(
+            name.split("/", 1)[1], leaf.shape, zero, split)
+        if not joins or name.split("/")[1] != "blocks":
+            arr = _to_numpy(_joined(leaf.detach(), joins) if joins else leaf)
+            if writer:
+                np.save(_leaf_path(tmp, i), arr)
+            continue
+        out = None
+        for r in range(leaf.shape[0]):
+            arr = _to_numpy(_joined(leaf[r].detach(), joins, lead=1))
+            if writer:
+                if out is None:
+                    out = np.lib.format.open_memmap(
+                        _leaf_path(tmp, i), mode="w+", dtype=arr.dtype,
+                        shape=(leaf.shape[0],) + arr.shape)
+                out[r] = arr
+        if out is not None:
+            out.flush()
+            del out
+    if writer:
+        manifest = {"step": step, "n_leaves": len(leaves),
+                    "dtypes": [_dtype_name(leaf) for _, leaf in leaves],
+                    "treedef": _describe(leaves)}
+        with open(os.path.join(tmp, "manifest.msgpack"), "wb") as f:
+            f.write(packb(manifest))
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        _gc(path, keep)
     if mesh is not None:
         dist.barrier()
     return final
 
 
-def _write(path: str, step: int, state: TrainState, keep: int):
-    leaves = state_leaves(state)
-    final = os.path.join(path, f"step_{step}")
-    tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp, exist_ok=True)
-    for i, (_, leaf) in enumerate(leaves):
-        np.save(_leaf_path(tmp, i), _to_numpy(leaf))
-    manifest = {"step": step, "n_leaves": len(leaves),
-                "dtypes": [_dtype_name(leaf) for _, leaf in leaves],
-                "treedef": _describe(leaves)}
-    with open(os.path.join(tmp, "manifest.msgpack"), "wb") as f:
-        f.write(packb(manifest))
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.replace(tmp, final)
-    _gc(path, keep)
+def _joins(path: str, shape, zero, split) -> list:
+    """(dim, process group) of each all-gather that makes this rank's
+    leaf ``path`` of ``shape`` whole: over the batch axes where it is a
+    slice of ``zero``'s cut, then over ``model`` where ``split`` cuts
+    it."""
+    out = []
+    if zero is not None and zero.sliced(path, shape):
+        out.append((zero.cuts[path][0], zero.group(path)))
+    if split is not None and split.cuts[path] is not None:
+        out.append((split.cuts[path][0], split.tp.group))
+    return out
+
+
+def _joined(t, joins, lead: int = 0):
+    """``t`` all-gathered along each of ``joins`` in turn (dims ``lead``
+    fewer: one layer of a stacked leaf), on the host. A collective: every
+    rank calls it, in the same order."""
+    for k, (dim, group) in enumerate(joins):
+        t = all_gather(t, dim - lead, group,
+                       "cpu" if k == len(joins) - 1 else None)
+    return t
 
 
 def _steps(path: str) -> list[int]:
@@ -263,14 +299,16 @@ def latest_step(path: str) -> int | None:
 
 def restore(path: str, like: TrainState, step: int | None = None,
             device=None, *, zero=None, split=None):
-    """Restore into the layout of ``like`` (tensors of the right shapes,
-    meta tensors will do: their values are not read) and return (state,
-    step), the leaves on ``device`` (None: each on its ``like`` leaf's
-    device). The leaf count and every shape must match, else ValueError;
-    each leaf takes the dtype the manifest names. With ``split``
-    (``bridge.ModelSplit``) the params and moments are this rank's slices
-    over ``model``, cut on the host; with ``zero`` (``optimizer.Zero1``)
-    the moments are this rank's slices of those."""
+    """Restore into the layout of ``like`` (tensors of the shapes this
+    rank stores, meta tensors will do: their values are not read) and
+    return (state, step), the leaves on ``device`` (None: each on its
+    ``like`` leaf's device). The leaf count and every shape must match,
+    else ValueError; each leaf takes the dtype the manifest names. With
+    ``split`` (``bridge.ModelSplit``) the params and moments are this
+    rank's slices over ``model``, and with ``zero``
+    (``parallel.fsdp.BatchCuts``) a leaf that ``like`` holds as a slice
+    of its cut (the moments; the params too under FSDP storage) is this
+    rank's slice of that; all cut on the host."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -287,23 +325,24 @@ def restore(path: str, like: TrainState, step: int | None = None,
         arr = np.load(_leaf_path(d, i))
         dt = manifest["dtypes"][i]
         want = () if isinstance(lk, int) else tuple(lk.shape)
+        if not isinstance(lk, int):
+            path = name.split("/", 1)[1]
+            if split is not None:
+                arr = _cut(arr, split.cuts[path])
+            if zero is not None and zero.sliced(path, want):
+                arr = _cut(arr, zero.part(path, arr.shape))
         if tuple(arr.shape) != want:
             raise ValueError(f"leaf {i} ({name}): shape {arr.shape}, "
                              f"expected {want}")
         if isinstance(lk, int):
             out[name] = int(arr)
             continue
-        if split is not None:
-            arr = _cut(arr, split.cuts[name.split("/", 1)[1]])
         if dt == _BF16:
             t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(arr)).to(_DTYPES[dt])
         out[name] = t.to(lk.device if device is None else device)
-    state = _state_from_names(like, out)
-    if zero is not None:
-        state.m, state.v = zero.slice_tree(state.m), zero.slice_tree(state.v)
-    return state, step
+    return _state_from_names(like, out), step
 
 
 def _cut(arr: np.ndarray, cut) -> np.ndarray:

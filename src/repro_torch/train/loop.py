@@ -8,8 +8,9 @@ With ``mesh`` the loop runs as one rank of the caller's world (every
 rank calls it with the same arguments; ``launch.world.spawn_world``
 starts such a world): the step is data-parallel over the batch axes
 and split over ``model`` (``train.train_step``), each rank drawing the
-whole init stream and keeping its slices, and checkpoints are saved
-whole by rank 0 (``train.checkpoint``). A resize re-enters on the loop's own devices:
+whole init stream and keeping the slices it stores (under ``fsdp_tp``,
+cut over the batch axes too), and checkpoints are saved whole by rank 0
+(``train.checkpoint``). A resize re-enters on the loop's own devices:
 its value is None or a mesh equal to the loop's. A resize to another
 data extent needs a world of another size, which the controller's
 segments start (``core.controller``); the loop does not.
@@ -88,10 +89,13 @@ def train_loop(
                 raise
 
 
-def _like(rcfg) -> TrainState:
-    """A TrainState of meta tensors with the run's shapes and dtypes."""
-    params = meta_params(rcfg.model)
-    moments = tree_map(lambda t: t.to(DTYPES[rcfg.moment_dtype]), params)
+def _like(rcfg, mesh=None) -> TrainState:
+    """A TrainState of meta tensors with the shapes and dtypes that this
+    rank of ``mesh`` stores (None: the whole run's)."""
+    params = meta_params(rcfg.model, mesh=mesh, parallel=rcfg.parallel)
+    zero = zero_for(rcfg, mesh)
+    moments = tree_map(lambda t: t.to(DTYPES[rcfg.moment_dtype]),
+                       params if zero is None else zero.slice_tree(params))
     return TrainState(0, params, moments, moments)
 
 
@@ -101,19 +105,20 @@ def _start(rcfg, ckpt_dir, device, mesh=None):
     same on every rank), or the newest checkpoint in ``ckpt_dir``
     restored there; the params and moments are the rank's slices over
     ``model`` under ``step_fn.split``, and the moments its ZeRO-1 slices
-    of those under ``step_fn.zero``. ``step_fn`` steps an LM over that state's params.
+    of those under ``step_fn.zero`` (the params too under ``fsdp_tp``).
+    ``step_fn`` steps an LM over that state's params.
     The loop's attempts and the controller's segments all enter here."""
     zero, split = zero_for(rcfg, mesh), model_split(rcfg, mesh)
     start = ckpt.latest_step(ckpt_dir)
     if start is None:
         gen = torch.Generator(device=device).manual_seed(rcfg.seed)
         state = make_optimizer(rcfg).init(init_params(
-            rcfg.model, gen, device, mesh=mesh if split else None,
-            parallel=rcfg.parallel), zero)
+            rcfg.model, gen, device, mesh=mesh, parallel=rcfg.parallel),
+            zero)
         start = 0
     else:
-        state, start = ckpt.restore(ckpt_dir, _like(rcfg), device=device,
-                                    zero=zero, split=split)
+        state, start = ckpt.restore(ckpt_dir, _like(rcfg, mesh),
+                                    device=device, zero=zero, split=split)
     lm = LM(rcfg.model, state.params, device=device)
     step_fn, _ = build_train_step(lm, rcfg, mesh)
     return state, start, step_fn

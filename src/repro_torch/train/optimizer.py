@@ -8,21 +8,28 @@ place under ``torch.no_grad``, a leaf whose fp32 temporaries would exceed
 ``SLICE_LIMIT_BYTES`` slice by slice along its leading axis (elementwise
 math: the same values as one pass).
 
-ZeRO-1 (``Zero1``): under a data mesh with ``ParallelConfig.zero1`` a
-rank keeps only its slice of ``m`` and ``v``: the one that
-``parallel.sharding.resolve_spec`` gives it under the ``fsdp_tp`` rules
-over the batch axes, as the reference's ``state_specs`` shard its moment
-storage. A leaf with no such dim keeps whole moments. The update runs on
-the matching slice of the parameter, which is then all-gathered along
-that dim. The reference leaves this dataflow (reduce-scatter, update,
-all-gather) to GSPMD; the port writes it out. ``AdamW.apply`` is
-elementwise, so the slices' updates are the whole update's bits.
+ZeRO-1: under a data mesh with ``ParallelConfig.zero1`` a rank keeps only
+its slice of ``m`` and ``v``: the one that the ``fsdp_tp`` rules give it
+over the batch axes (``parallel.fsdp.BatchCuts``), as the reference's
+``state_specs`` shard its moment storage. A leaf with no such dim keeps
+whole moments. The update runs on the matching slice of a whole
+parameter, which is then all-gathered along that dim. The reference
+leaves this dataflow (reduce-scatter, update, all-gather) to GSPMD; the
+port writes it out. ``AdamW.apply`` is elementwise, so the slices'
+updates are the whole update's bits.
 
 Under a ``model`` axis of more than one rank the params are the rank's
 slices (``bridge.ModelSplit``), and ZeRO-1 cuts the moments of each slice
 along its ``embed`` dim over (``pod``, ``data``): the reference's
 ``opt_strategy = "fsdp_tp"`` for moments. The global norm sums the
 slices' squares over ``model`` too (``AdamW.apply(split=)``).
+
+Under FSDP storage (``strategy="fsdp_tp"``) the params are stored at the
+moments' cuts, and a stored slice's gradient comes out of the forward's
+gather already summed over the cut's batch axes (``models.lm``). The
+update reads which is which from the shapes: a parameter of its moments'
+shape is updated in place, with no all-gather; a gradient of that shape
+is a slice, whose squares the global norm sums over the cut's axes.
 """
 from __future__ import annotations
 
@@ -34,8 +41,7 @@ import torch
 from repro_torch.models.lm import (
     DTYPES, sorted_tree_leaves, tree_leaves, tree_map)
 from repro_torch.parallel.collectives import all_gather, all_reduce
-from repro_torch.parallel.sharding import (
-    AXIS_MODEL, batch_axes, resolve_spec)
+from repro_torch.parallel.fsdp import BatchCuts
 
 # A leaf whose fp32 copy exceeds this is clipped and updated in slices
 # along its leading axis: musicgen-large's stacked MLP leaves (48, 2048,
@@ -71,87 +77,6 @@ def _leaves(tree):
     return [t for _, t in sorted_tree_leaves(tree)]
 
 
-def unflatten(paths, values):
-    """A nested dict from '/'-joined paths and their values."""
-    out = {}
-    for path, val in zip(paths, values):
-        node = out
-        *dirs, last = path.split("/")
-        for d in dirs:
-            node = node.setdefault(d, {})
-        node[last] = val
-    return out
-
-
-class Zero1:
-    """This rank's ZeRO-1 slices of a model's moments under ``mesh``.
-
-    ``cuts[path]`` is (dim, axes) for a leaf whose ``fsdp_tp`` placement
-    puts batch axes on ``dim`` (``axes``, a tuple of them), else None. A
-    rank holds the part of ``dim`` at its row-major index over ``axes``;
-    the ranks of the other batch axes hold the same part. The plan reads
-    only the mesh's ``axis_names``, ``shape`` and ``coords``, so a
-    shape-only stand-in of a large mesh serves; the collectives need the
-    port's ``launch.mesh.Mesh``."""
-
-    def __init__(self, cfg, mesh):
-        from repro_torch.bridge import meta_params, param_axes
-        self.mesh = mesh
-        axes = dict(tree_leaves(param_axes(cfg)))
-        self.cuts = {}
-        for path, t in tree_leaves(meta_params(cfg)):
-            spec = resolve_spec(axes[path], tuple(t.shape), mesh, "fsdp_tp")
-            self.cuts[path] = None
-            for dim, at in enumerate(spec):
-                at = (at,) if isinstance(at, str) else tuple(at or ())
-                on = tuple(a for a in at if a in batch_axes(mesh))
-                if on and AXIS_MODEL not in at:
-                    self.cuts[path] = (dim, on)
-                    break
-
-    def part(self, path: str, shape) -> tuple[int, int, int] | None:
-        """(dim, start, stop) of this rank's slice of leaf ``path``, or
-        None when it holds the leaf's moments whole."""
-        cut = self.cuts[path]
-        if cut is None:
-            return None
-        dim, on = cut
-        n = 1
-        i = 0
-        for a in on:
-            n *= self.mesh.shape[a]
-            i = i * self.mesh.shape[a] + self.mesh.coords[a]
-        size = shape[dim] // n
-        return dim, i * size, (i + 1) * size
-
-    def group(self, path: str):
-        return self.mesh.group(*self.cuts[path][1])
-
-    def local(self, path: str, t):
-        """This rank's slice of ``t`` (a view), or ``t`` itself."""
-        part = self.part(path, t.shape)
-        if part is None:
-            return t
-        dim, lo, hi = part
-        return t.narrow(dim, lo, hi - lo)
-
-    def slice_tree(self, tree):
-        """Each leaf's slice, as its own tensor."""
-        paths, leaves = zip(*tree_leaves(tree))
-        return unflatten(paths, [
-            t if self.cuts[p] is None else self.local(p, t).clone()
-            for p, t in zip(paths, leaves)])
-
-    def gather_tree(self, tree):
-        """The whole leaves of a tree of slices (a collective: every rank
-        calls it, in the same order)."""
-        paths, leaves = zip(*tree_leaves(tree))
-        return unflatten(paths, [
-            t if self.cuts[p] is None
-            else all_gather(t, self.cuts[p][0], self.group(p))
-            for p, t in zip(paths, leaves)])
-
-
 @dataclass(frozen=True)
 class AdamW:
     lr: float = 3e-4
@@ -165,12 +90,13 @@ class AdamW:
     min_lr_frac: float = 0.1
     moment_dtype: str = "bfloat16"
 
-    def init(self, params, zero: Zero1 | None = None) -> TrainState:
-        """Zero moments; under ``zero``, this rank's slices of them."""
+    def init(self, params, zero: BatchCuts | None = None) -> TrainState:
+        """Zero moments; under ``zero``, this rank's slices of them (a
+        stored slice's moments take its shape)."""
         mdt = DTYPES[self.moment_dtype]
         device = next(tree_leaves(params))[1].device
-        like = params if zero is None else zero.slice_tree(tree_map(
-            lambda t: torch.empty(t.shape, device="meta"), params))
+        like = params if zero is None else zero.slice_tree(
+            tree_map(lambda t: torch.empty(t.shape, device="meta"), params))
 
         def zeros(t):
             return torch.zeros(t.shape, dtype=mdt, device=device)
@@ -191,20 +117,21 @@ class AdamW:
         return self.lr * warm * frac
 
     @torch.no_grad()
-    def apply(self, state: TrainState, grads, zero: Zero1 | None = None,
+    def apply(self, state: TrainState, grads, zero: BatchCuts | None = None,
               split=None) -> tuple[TrainState, dict]:
         """One update from ``grads`` (a nested dict laid out as the params,
         any float dtype: each slice is cast to fp32 here), in place, leaves
         in the reference's order. Returns (state, {"grad_norm", "lr"}),
         fp32 scalar tensors, grad_norm on the params' device.
 
-        Under ``zero`` the moments are this rank's slices: each leaf's
-        slice of the parameter is updated and then all-gathered. A
-        gradient is the whole leaf's (every rank holds the reduced
-        gradient) or already this rank's slice (a reduce-scatter); the
-        global norm sums the whole leaves in leaf order on every rank, and
-        the slices' squares over the batch axes, so each leaf counts once
-        and every rank clips by the same scale.
+        Under ``zero`` the moments are this rank's slices. A whole
+        parameter's slice is updated and then all-gathered; a stored
+        slice (FSDP storage) is updated in place. A gradient is the whole
+        leaf's (every rank holds the reduced gradient) or this rank's
+        slice (a reduce-scatter, or a stored slice's); the global norm
+        sums the whole leaves in leaf order on every rank, and the
+        slices' squares over their cut's batch axes, so each leaf counts
+        once and every rank clips by the same scale.
 
         ``split`` (``bridge.ModelSplit``, under a ``model`` axis of more
         than one rank): the params of its ``split`` paths are this rank's
@@ -215,11 +142,13 @@ class AdamW:
         leaves = list(zip(paths, _leaves(state.params), _leaves(grads),
                           _leaves(state.m), _leaves(state.v)))
         cut = split.split if split is not None else frozenset()
-        # squares by (zero-sliced gradient, leaf split over model), each
-        # summed in leaf order
+        # squares by (the batch axes a gradient slice is cut over, or ()
+        # for a whole one; leaf split over model), each summed in leaf
+        # order
         sums = {}
         for path, p, g, _, _ in leaves:
-            key = (g.shape != p.shape, path in cut)
+            sliced = zero is not None and zero.sliced(path, g.shape)
+            key = (zero.cuts[path][1] if sliced else (), path in cut)
             for part in _slices(g):
                 sums[key] = sums.get(key, 0) + part.float().square().sum()
 
@@ -227,14 +156,15 @@ class AdamW:
             return torch.as_tensor(sums.get(key, 0), dtype=torch.float32,
                                    device=leaves[0][1].device)
 
-        sq, sliced = total(False, False), total(True, True)
-        if (True, False) in sums or (True, True) in sums:
-            # a slice's squares are summed over the batch axes first
-            both = all_reduce(torch.stack([total(True, False), sliced]),
-                              zero.mesh.group(*batch_axes(zero.mesh)))
-            sq, sliced = sq + both[0], both[1]
+        sq, sliced = total((), False), total((), True)
+        for on in sorted({on for on, _ in sums if on}):
+            # a slice's squares are summed over its cut's axes first
+            both = all_reduce(torch.stack([total(on, False),
+                                           total(on, True)]),
+                              zero.mesh.group(*on))
+            sq, sliced = sq + both[0], sliced + both[1]
         if cut:
-            sq = sq + all_reduce(total(False, True) + sliced, split.tp.group)
+            sq = sq + all_reduce(sliced, split.tp.group)
         gnorm = torch.sqrt(sq)
         scale = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
@@ -246,10 +176,11 @@ class AdamW:
         b1, b2, eps, wd = self.b1, self.b2, self.eps, self.weight_decay
         dev_lr, bc1_d, bc2_d = (t.to(gnorm.device) for t in (lr, bc1, bc2))
         for path, p, g, m, v in leaves:
-            sharded = zero is not None and zero.cuts[path] is not None
+            sharded = (zero is not None and zero.cuts[path] is not None
+                       and not zero.sliced(path, p.shape))
             if sharded:
                 p_all, p = p, zero.local(path, p)
-                if g.shape == p_all.shape:
+                if not zero.sliced(path, g.shape):
                     g = zero.local(path, g)
             for ps, gs, ms, vs in zip(_slices(p), _slices(g), _slices(m),
                                       _slices(v)):

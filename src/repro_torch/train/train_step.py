@@ -26,7 +26,7 @@ update as one device, up to the order of the sums.
   slices where the backend has one (NCCL), else an all-reduce (gloo).
   The loss and metrics are summed once too.
 - With ``zero1`` (the default) each rank keeps its slices of the moments
-  (``optimizer.Zero1``).
+  (``parallel.fsdp.BatchCuts``).
 - With ``grad_compress_pod`` on a mesh of two or more pods, the loss
   context is the pod's data ranks, as the reference's ``shard_map`` over
   ``pod`` makes it; each microbatch's gradients are summed over those
@@ -49,12 +49,31 @@ step is the reference's on the same mesh: one device's math, with the
 MoE capacity per data shard where the experts split
 (``models.moe.moe_train``).
 
-The ``fsdp_tp`` strategy under a data mesh raises: FSDP parameter storage
-is a later slice of the port (ROADMAP queue 3). So does pod compression
-under a ``model`` axis of more than one rank, which the reference's
-``shard_map`` over ``pod`` does not run.
+With ``strategy="fsdp_tp"`` (FSDP storage, ``parallel.fsdp``) a
+rank stores only its slice of every leaf that the ``fsdp_tp`` rules cut
+over the batch axes, on top of its ``model`` slice, and the moments of
+that slice; the math is the ``tp`` math. The loss gathers each layer's
+slices while the layer runs (``models.lm``), and the gather's backward
+sums a stored slice's gradient over the cut's batch axes, so
+``reduce_grads`` sums such a leaf only over the batch axes its cut
+leaves out (``pod``, where the size guard drops it). With microbatches
+each microbatch's summed slice is added into a bf16 accumulator of the
+slice's shape, as the reference accumulates in the storage sharding.
+The update writes the stored slices in place, with no all-gather.
+
+With pod compression under ``fsdp_tp`` each pod's loss reads its
+chunks (``parallel.fsdp.PodChunks``), as the reference's ``shard_map``
+over ``pod`` hands each pod its leaves whole over ``pod``: a layer's
+gather then runs over the pod's ``data`` ranks, whose gradients its
+backward sums, and each pod's gradient of a leaf is quantized against
+the whole stacked leaf's scale (``parallel.compression``) before this
+rank keeps its stored slice of the mean over pods. Pod compression
+raises under a ``model`` axis of more than one rank, which the
+reference's ``shard_map`` over ``pod`` does not run.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
@@ -62,11 +81,13 @@ import torch.distributed as dist
 from repro_torch.bridge import ModelSplit, meta_params
 from repro_torch.models.lm import LM, Runtime, tree_leaves
 from repro_torch.parallel.collectives import (
-    all_reduce, gloo_transport, reduce_metrics)
+    all_reduce, gloo_transport, reduce_metrics, reduce_scatter)
 from repro_torch.parallel.compression import build_pod_compressed_grad_fn
+from repro_torch.parallel.fsdp import (
+    BatchCuts, PodChunks, fsdp_plan, unflatten)
 from repro_torch.parallel.sharding import (
     AXIS_DATA, AXIS_MODEL, AXIS_POD, batch_axes, mesh_axis_size)
-from repro_torch.train.optimizer import AdamW, TrainState, Zero1, unflatten
+from repro_torch.train.optimizer import AdamW, TrainState
 
 # An all-reduce of many gradient leaves goes in flat buckets of at most
 # this many bytes: one collective a bucket, not one a leaf.
@@ -92,11 +113,7 @@ def check_data_mesh(mesh, parallel) -> None:
             f"grad_compress_pod with {mesh.shape[AXIS_MODEL]} ranks on the "
             "model axis: the reference's shard_map over pod does not run "
             "with model > 1 (its inner shardings name the manual pod "
-            "axis), so there is no step to copy")
-    if parallel.strategy == "fsdp_tp":
-        raise ValueError("strategy 'fsdp_tp' under a data mesh: FSDP "
-                         "parameter storage is ROADMAP queue 3; use 'tp' "
-                         "(with zero1 for sharded moments)")
+            "axis), so there is no step to copy (ROADMAP queue 1)")
 
 
 def model_split(rcfg, mesh) -> ModelSplit | None:
@@ -107,13 +124,17 @@ def model_split(rcfg, mesh) -> ModelSplit | None:
     return ModelSplit(rcfg.model, mesh, rcfg.parallel)
 
 
-def zero_for(rcfg, mesh) -> Zero1 | None:
-    """The ZeRO-1 plan of a run on ``mesh``: None on one rank or without
-    ``zero1``."""
-    if mesh is None or not rcfg.parallel.zero1 or mesh.size(
-            *batch_axes(mesh)) == 1:
+def zero_for(rcfg, mesh) -> BatchCuts | None:
+    """The cuts over the batch axes that a run on ``mesh`` stores its
+    moments by (``parallel.fsdp.BatchCuts``): with ``zero1``, and under
+    ``fsdp_tp`` whatever ``zero1`` says, as the reference's
+    ``state_specs`` place them; else None, as on one rank."""
+    if mesh is None or not (rcfg.parallel.zero1
+                            or rcfg.parallel.strategy == "fsdp_tp"):
         return None
-    return Zero1(rcfg.model, mesh)
+    if math.prod(mesh.shape[a] for a in batch_axes(mesh)) == 1:
+        return None
+    return BatchCuts(rcfg.model, mesh)
 
 
 def all_reduce_flat(tensors, group) -> list:
@@ -138,36 +159,52 @@ def all_reduce_flat(tensors, group) -> list:
     return out
 
 
-def _reduce_scatter(g, dim: int, group):
-    """This rank's slice along ``dim`` of the sum over ``group`` of g."""
-    n = dist.get_world_size(group)
-    src = g.movedim(dim, 0).contiguous()
-    out = torch.empty((src.shape[0] // n,) + src.shape[1:], dtype=g.dtype,
-                      device=g.device)
-    dist.reduce_scatter_tensor(out, src, group=group)
-    return out.movedim(0, dim)
+def summed_over(path: str, shape, mesh,
+                zero: BatchCuts | None) -> tuple[str, ...]:
+    """The batch axes that ``reduce_grads`` sums the gradient of leaf
+    ``path``, of ``shape``, over: all of them, but for a stored slice
+    (FSDP storage) only those that its cut leaves out (its gather's
+    backward summed over the rest)."""
+    bax = batch_axes(mesh)
+    if zero is None or not zero.sliced(path, shape):
+        return bax
+    return tuple(a for a in bax if a not in zero.cuts[path][1])
 
 
-def reduce_grads(grads, paths, mesh, zero: Zero1 | None):
-    """The gradients summed over the mesh's batch axes: each leaf whole
-    on every rank, or, under ZeRO-1 on a backend with a reduce-scatter
-    (NCCL), this rank's slice of a leaf that is cut over every batch
-    axis."""
+def reduce_grads(grads, paths, mesh, zero: BatchCuts | None):
+    """The gradients summed over the mesh's batch axes: each whole leaf's
+    whole on every rank, or, under ZeRO-1 on a backend with a
+    reduce-scatter (NCCL), this rank's slice of one that is cut over
+    every batch axis. A stored slice's is summed only over the axes of
+    ``summed_over`` (none, where its cut covers every batch axis)."""
     bax = batch_axes(mesh)
     group = mesh.group(*bax)
     scatter = (zero is not None and not gloo_transport(group)
                and dist.get_world_size(group) > 1)
     out = list(grads)
-    rest = []
+    rest = {}
     for k, (path, g) in enumerate(zip(paths, grads)):
-        cut = zero.cuts[path] if scatter else None
+        cut = (zero.cuts[path] if scatter and not zero.sliced(path, g.shape)
+               else None)
         if cut is not None and cut[1] == bax:
-            out[k] = _reduce_scatter(g, cut[0], group)
-        else:
-            rest.append(k)
-    for k, g in zip(rest, all_reduce_flat([grads[k] for k in rest], group)):
-        out[k] = g
+            out[k] = reduce_scatter(g, cut[0], group)
+            continue
+        axes = summed_over(path, g.shape, mesh, zero)
+        if axes:
+            rest.setdefault(axes, []).append(k)
+    for axes, ks in rest.items():
+        for k, g in zip(ks, all_reduce_flat([grads[k] for k in ks],
+                                            mesh.group(*axes))):
+            out[k] = g
     return out
+
+
+class _PodRuntime(Runtime):
+    """The runtime of one pod's loss under pod compression with FSDP
+    storage: the params it reads are ``PodChunks``' chunks."""
+
+    def fsdp(self, cfg) -> PodChunks:
+        return PodChunks(cfg, self.mesh)
 
 
 def build_train_step(lm: LM, rcfg, mesh=None):
@@ -179,7 +216,9 @@ def build_train_step(lm: LM, rcfg, mesh=None):
     (None without ZeRO-1). Under a ``model`` axis of more than one rank,
     ``lm.params`` must be this rank's slices (``bridge.init_params`` or
     ``params_from_jax`` with the mesh and ``rcfg.parallel``), which
-    ``train_step.split`` (``bridge.ModelSplit``, else None) names.
+    ``train_step.split`` (``bridge.ModelSplit``, else None) names; so
+    must they under ``fsdp_tp``, whose cuts over the batch axes
+    ``train_step.zero`` names (``parallel.fsdp.BatchCuts``).
 
     Sets ``requires_grad`` on every param leaf; the serving passes run
     under ``torch.no_grad`` and are unaffected.
@@ -190,7 +229,9 @@ def build_train_step(lm: LM, rcfg, mesh=None):
     n_micro = max(parallel.microbatches, 1)
     paths, leaves = zip(*tree_leaves(lm.params))
     split = model_split(rcfg, mesh)
-    if split is not None:
+    zero = zero_for(rcfg, mesh)
+    fsdp = fsdp_plan(rcfg.model, mesh, parallel) is not None
+    if split is not None or fsdp:
         want = dict(tree_leaves(meta_params(rcfg.model, mesh=mesh,
                                             parallel=parallel)))
         for path, t in zip(paths, leaves):
@@ -198,7 +239,7 @@ def build_train_step(lm: LM, rcfg, mesh=None):
                 raise ValueError(f"param {path} of shape {tuple(t.shape)}: "
                                  f"this rank of {dict(mesh.shape)} holds "
                                  f"{tuple(want[path].shape)}")
-    rt = Runtime(parallel, mesh) if split is not None else None
+    rt = Runtime(parallel, mesh) if split is not None or fsdp else None
     for t in leaves:
         t.requires_grad_(True)
     bax = batch_axes(mesh) if mesh is not None else ()
@@ -213,22 +254,50 @@ def build_train_step(lm: LM, rcfg, mesh=None):
         loss_axes = bax
     loss_group = (mesh.group(*loss_axes)
                   if loss_axes and mesh.size(*loss_axes) > 1 else None)
-    zero = zero_for(rcfg, mesh)
+    # the leaves whose gradients reduce_grads sums: in fp32 after bf16
+    # microbatches; a stored slice summed by its gather stays bf16, as
+    # the reference's accumulator in the storage sharding
+    summed = [n > 1 and not compress
+              and bool(summed_over(p, t.shape, mesh, zero))
+              for p, t in zip(paths, leaves)]
+
+    # pod compression under FSDP storage: each pod's loss reads chunks
+    pods = PodChunks(rcfg.model, mesh) if compress and fsdp else None
+    gathered = [pods is not None and pods.cuts[p] is not None for p in paths]
 
     def grad_fn(batch):
-        loss, metrics = lm.loss(batch, parallel, data=loss_group, rt=rt)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), metrics, grads
+        if pods is None:
+            loss, metrics = lm.loss(batch, parallel, data=loss_group, rt=rt)
+            return loss.detach(), metrics, torch.autograd.grad(loss, leaves)
+        chunks = [pods.chunk(p, t.detach()).requires_grad_(True)
+                  for p, t in zip(paths, leaves)]
+        loss, metrics = LM(rcfg.model, unflatten(paths, chunks),
+                           device=lm.device).loss(
+            batch, parallel, data=loss_group, rt=_PodRuntime(parallel, mesh))
+        return loss.detach(), metrics, torch.autograd.grad(loss, chunks)
 
     if compress:
         def pod_grad_fn(batch):
             loss, metrics, grads = grad_fn(batch)
             if loss_group is None:
                 return loss, metrics, grads
-            grads = all_reduce_flat(list(grads), loss_group)
+            # a gathered leaf's gradient is summed over the pod's data
+            # ranks by its gather's backward already
+            grads = list(grads)
+            rest = [k for k, g in enumerate(gathered) if not g]
+            for k, g in zip(rest, all_reduce_flat([grads[k] for k in rest],
+                                                  loss_group)):
+                grads[k] = g
             return (*reduce_metrics(loss, metrics, loss_group), grads)
 
-        step_grad_fn = build_pod_compressed_grad_fn(pod_grad_fn, mesh)
+        compressed = build_pod_compressed_grad_fn(pod_grad_fn, mesh, [
+            mesh.group(AXIS_DATA) if g else None for g in gathered])
+
+        def step_grad_fn(batch):
+            loss, metrics, grads = compressed(batch)
+            if pods is not None:
+                grads = [pods.own(p, g) for p, g in zip(paths, grads)]
+            return loss, metrics, grads
     else:
         step_grad_fn = grad_fn
 
@@ -258,9 +327,9 @@ def build_train_step(lm: LM, rcfg, mesh=None):
                     acc += gi.to(torch.bfloat16)
                 del g
                 loss = loss + mloss
-            if n > 1 and not compress:
-                # summed over ranks in fp32, then averaged
-                grads = [acc.float() for acc in grads]
+            # summed over ranks in fp32, then averaged
+            grads = [acc.float() if s else acc
+                     for acc, s in zip(grads, summed)]
         if n > 1 and not compress:
             grads = reduce_grads(grads, paths, mesh, zero)
             loss, metrics = reduce_metrics(loss, metrics, mesh.group(*bax))

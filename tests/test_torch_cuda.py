@@ -1029,3 +1029,115 @@ def test_tensor_parallel_train_step_equals_one_rank(card, backend):
             torch.testing.assert_close(r["params"][p], want, rtol=1e-4,
                                        atol=1e-4)
             assert torch.equal(r["params"][p], ranks[0]["params"][p]), p
+
+
+# ------------------------------------------------ FSDP parameter storage
+def _fsdp_rank(rank, mesh):
+    """On this rank of (data 2): ``fsdp_gather`` of a card tensor (its
+    forward and the gradient it hands back) and ``reduce_scatter`` of
+    another, then one ``fsdp_tp`` step of ``_fsdp_run``, its params
+    joined whole."""
+    import torch.distributed as dist
+    from repro_torch.bridge import init_params
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.models.lm import LM, tree_leaves, tree_map
+    from repro_torch.parallel.collectives import fsdp_gather, reduce_scatter
+    from repro_torch.train.train_step import build_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group, dev = mesh.group("data"), mesh.device
+    x = (torch.arange(12.0, device=dev).reshape(3, 4) + 100 * rank)
+    t = x.clone().requires_grad_(True)
+    y = fsdp_gather(t, 1, group)                      # (3, 8)
+    (y * (rank + 1)).sum().backward()
+    out = {"y": y.detach().cpu(), "grad": t.grad.cpu(),
+           "scatter": reduce_scatter(torch.arange(
+               16.0, device=dev).reshape(4, 4) * (rank + 1), 0, group).cpu(),
+           "backend": dist.get_backend()}
+    rcfg = _fsdp_run()
+    # the slices this rank stores of the same draws
+    lm = LM(rcfg.model, tree_map(lambda t: t.to(dev), init_params(
+        rcfg.model, torch.Generator().manual_seed(0), "cpu", mesh=mesh,
+        parallel=rcfg.parallel)), device=dev)
+    step_fn, opt = build_train_step(lm, rcfg, mesh)
+    state = opt.init(lm.params, step_fn.zero)
+    ops.reset_launch_counts()
+    state, met = step_fn(state, synthetic_batches(rcfg, dev)(0))
+    out.update(metrics={k: float(v) for k, v in met.items()},
+               params={p: t.detach().cpu() for p, t in tree_leaves(
+                   step_fn.zero.gather_tree(lm.params))},
+               stored=sum(t.numel() for _, t in tree_leaves(lm.params)),
+               launches=ops.launch_counts())
+    return out
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_fsdp_collectives_and_step_equal_plain_and_one_rank(card, backend):
+    """FSDP storage on 2 ranks (``launch.world.spawn_world``): gloo with
+    both ranks on the one card, NCCL with a card a rank (its
+    reduce-scatter). ``fsdp_gather`` joins the ranks' slices in rank
+    order and hands each rank its slice of the summed gradient;
+    ``reduce_scatter`` gives each rank its rows of the plain sum. One
+    ``fsdp_tp`` step of qwen2-7b's smoke config (``_fsdp_run``): loss
+    and metrics within rtol 1e-5 of one rank's, the updated params within
+    1e-4 and equal on both ranks, a rank storing at most 0.51 of the
+    params; no kernel launches."""
+    from repro_torch.launch.world import spawn_world
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip("NCCL puts one rank on a card: needs two cards")
+    devices = ["cuda:0", "cuda:0"] if backend == "gloo" else \
+        ["cuda:0", "cuda:1"]
+    ranks = spawn_world(2, _fsdp_rank, devices=devices)
+    xs = [torch.arange(12.0).reshape(3, 4) + 100 * r for r in range(2)]
+    whole = sum(torch.arange(16.0).reshape(4, 4) * (r + 1) for r in range(2))
+    ref = _fsdp_one_rank()
+    n = sum(t.numel() for t in ref["params"].values())
+    for r, got in enumerate(ranks):
+        assert got["backend"] == backend
+        assert torch.equal(got["y"], torch.cat(xs, dim=1))
+        assert torch.equal(got["grad"], torch.full((3, 4), 3.0))   # 1 + 2
+        assert torch.equal(got["scatter"], whole[2 * r:2 * r + 2])
+        assert not any(got["launches"].values()), got["launches"]
+        assert got["stored"] <= 0.51 * n
+    for r in ranks:
+        for k, want in ref["metrics"].items():
+            assert r["metrics"][k] == pytest.approx(want, rel=1e-5), k
+        for p, want in ref["params"].items():
+            torch.testing.assert_close(r["params"][p], want, rtol=1e-4,
+                                       atol=1e-4)
+            assert torch.equal(r["params"][p], ranks[0]["params"][p]), p
+
+
+def _fsdp_run():
+    """qwen2-7b's smoke config in fp32 under ``fsdp_tp``, global batch 4,
+    fp32 moments."""
+    import dataclasses
+
+    from repro_torch.configs import (
+        ParallelConfig, RunConfig, ShapeConfig, get_smoke_config)
+    cfg = dataclasses.replace(get_smoke_config("qwen2-7b"), dtype="float32")
+    return RunConfig(model=cfg, shape=ShapeConfig("fsdp", "train", 32, 4),
+                     parallel=ParallelConfig(strategy="fsdp_tp",
+                                             attn_q_chunk=16,
+                                             attn_kv_chunk=16),
+                     warmup_steps=2, moment_dtype="float32")
+
+
+def _fsdp_one_rank():
+    """``_fsdp_rank``'s step alone on the card: the same weights, the
+    global batch whole."""
+    from repro_torch.bridge import init_params
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.models.lm import LM, tree_leaves, tree_map
+    from repro_torch.train.train_step import build_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rcfg = _fsdp_run()
+    dev = torch.device("cuda", 0)
+    lm = LM(rcfg.model, tree_map(lambda t: t.to(dev), init_params(
+        rcfg.model, torch.Generator().manual_seed(0), "cpu")), device=dev)
+    step_fn, opt = build_train_step(lm, rcfg)
+    state = opt.init(lm.params, step_fn.zero)
+    state, met = step_fn(state, synthetic_batches(rcfg, dev)(0))
+    return {"metrics": {k: float(v) for k, v in met.items()},
+            "params": {p: t.detach().cpu()
+                       for p, t in tree_leaves(lm.params)}}

@@ -9,7 +9,9 @@ the same seeds, with emulated engines only (no model).
   named lines the port words differently;
 - emulator: the same 11 registered systems, the 8 emulated ones giving
   equal ``SystemResult``s field for field, the 3 serve systems equal
-  ``FleetStats``, and equal ``launch.emulate --json`` output;
+  ``FleetStats``, equal ``launch.emulate --json`` output, and
+  ``examples/emulate_cloud_torch.py`` printing what
+  ``examples/emulate_cloud.py`` prints;
 - fleet and columnar runs equal field for field.
 
 The reference's two failing tests (``test_provider.py::
@@ -22,7 +24,9 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import json
+import os
 import re
+import subprocess
 import sys
 from pathlib import Path
 
@@ -180,6 +184,29 @@ def test_emulate_cli_json_equal(monkeypatch, capsys):
         out.append(json.loads(capsys.readouterr().out))
     assert out[0] == out[1]
     assert set(out[1]) == {"dcs", "ssp", "drp", "dawningcloud"}
+
+
+def _run_example(name, argv):
+    """The printed lines of ``examples/<name>`` run under ``argv`` in a
+    process of its own (``--all`` reads the registry, which this process'
+    other tests may have added to)."""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / name)] + argv,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return out.stdout
+
+
+@pytest.mark.parametrize("argv", [[], ["--policy-set", "paper"]],
+                         ids=["tuned", "paper"])
+def test_emulate_cloud_example_prints_the_reference_numbers(argv):
+    """``examples/emulate_cloud_torch.py`` prints what
+    ``examples/emulate_cloud.py`` prints, line for line: the workloads,
+    every system's node-hours, peak and adjustments, and the savings."""
+    ref = _run_example("emulate_cloud.py", argv)
+    got = _run_example("emulate_cloud_torch.py", argv)
+    assert "DawningCloud saves" in got and got == ref
 
 
 # ----------------------------------------------------------------- fleet

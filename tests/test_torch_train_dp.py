@@ -27,8 +27,8 @@ across worlds) against the JAX package under a mesh, on the CPU, in fp32.
 - Placement: the ZeRO-1 slices equal the reference's ``state_specs`` for
   every leaf of all ten archs, at (data 2), (data 16, model 16) and (pod
   2, data 16, model 16), shape only.
-- The refusal of ``fsdp_tp`` under a data mesh; and ``--data 2``
-  trains (training under the ``model`` axis: ``tests/test_torch_train_
+- ``fsdp_tp`` passes ``check_data_mesh`` under a data mesh (its pod
+  compression is refused); and ``--data 2`` trains (training under the ``model`` axis: ``tests/test_torch_train_
   tp.py``).
 
 The reference runs in subprocesses with 4 forced host devices
@@ -61,7 +61,7 @@ from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.world import backend_for, spawn_world  # noqa: E402
 from repro_torch.models.lm import LM, tree_leaves  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
-from repro_torch.train.optimizer import Zero1  # noqa: E402
+from repro_torch.parallel.fsdp import BatchCuts  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("qwen2-7b", "arctic-480b", "mamba2-1.3b", "musicgen-large",
@@ -617,11 +617,12 @@ def test_zero1_slices_equal_the_reference_state_specs(arch):
                 on = tuple(a for a in at if a in ("pod", "data"))
                 if on:
                     want[path] = (dim, on)
-        assert Zero1(cfg, mesh).cuts == want, (arch, sizes)
+        cuts = BatchCuts(cfg, mesh).cuts
+        assert {p: cuts[p] for p in shapes} == want, (arch, sizes)
         bax = [a for a in names if a != "model"]
         parts = {p: set() for p in shapes}
         for at in itertools.product(*(range(mesh.shape[a]) for a in bax)):
-            zero = Zero1(cfg, _shape_mesh(sizes, names, dict(
+            zero = BatchCuts(cfg, _shape_mesh(sizes, names, dict(
                 zip(names, at + (0,) * (len(names) - len(at))))))
             for p, shape in shapes.items():
                 parts[p].add(zero.part(p, shape))
@@ -638,10 +639,20 @@ def test_zero1_slices_equal_the_reference_state_specs(arch):
 
 # -------------------------------------------------------------- refusals
 def test_fsdp_tp_raises_naming_the_roadmap():
+    """``check_data_mesh`` accepts ``fsdp_tp`` under a data mesh (FSDP
+    storage, ``tests/test_torch_fsdp.py``), with pod compression on two
+    pods too; what it still refuses under ``fsdp_tp``, pod compression
+    with a ``model`` axis of two ranks, names the ROADMAP."""
     from repro_torch.train.train_step import check_data_mesh
+    check_data_mesh(_shape_mesh((2, 1), ("data", "model")),
+                    ParallelConfig(strategy="fsdp_tp"))
+    check_data_mesh(_shape_mesh((2, 2, 1), ("pod", "data", "model")),
+                    ParallelConfig(strategy="fsdp_tp",
+                                   grad_compress_pod=True))
     with pytest.raises(ValueError, match="ROADMAP"):
-        check_data_mesh(_shape_mesh((2, 1), ("data", "model")),
-                        ParallelConfig(strategy="fsdp_tp"))
+        check_data_mesh(_shape_mesh((2, 1, 2), ("pod", "data", "model")),
+                        ParallelConfig(strategy="fsdp_tp",
+                                       grad_compress_pod=True))
     check_data_mesh(_shape_mesh((2, 1), ("data", "model")), ParallelConfig())
     assert backend_for(["cpu", "cpu"]) == "gloo"
     assert backend_for(["cuda:0", "cuda:0"]) == "gloo"

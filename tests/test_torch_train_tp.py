@@ -269,7 +269,7 @@ def _step_case(name, case, mesh, inp, out):
     for p, g in seen["grads"].items():
         if p not in split.split:
             out[f"{name}/local/{p}"] = g.numpy()
-    from repro_torch.train.optimizer import unflatten
+    from repro_torch.parallel.fsdp import unflatten
     grads = split.gather_tree(unflatten(list(seen["grads"]),
                                         list(seen["grads"].values())))
     m, v = ((zero.gather_tree(t) if zero else t) for t in (state.m, state.v))
