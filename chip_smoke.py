@@ -93,6 +93,20 @@ dsp. the DSP control plane on musicgen-large at full width, depth cut to
    beside the one ``plan`` picks (the measurements its split rule rests
    on).
 
+dryrun. the dry run (``repro_torch.launch.dryrun``) against the card:
+   (a) for musicgen-large and qwen3-14b (DRYRUN_ARCHS), after phase 5, a
+   prefill group (2 x 512) and a decode step (batch 8 over a 1024-deep
+   cache) of phase 5's shapes, run on meta tensors (on the host) and on
+   the card: the dry run's launches by kernel must equal
+   ``ops.launch_counts()`` on the card, and its params, cache and batch
+   bytes the live tensors'; its predicted peak is printed beside
+   ``max_memory_allocated`` with the gap, and (c) its counted FLOPs over
+   the card's step time as a share of the bf16 peak (a report). (b) In
+   the parallel phase's T1, each rank records the collectives of one
+   prefill group and one decode step; they must equal, in order, kind,
+   dtype, bytes and group, the dry run's for the same rank of a fake
+   group at mesh (1, 2).
+
 train. the HTC training job (``repro_torch.train``), which reaches no
    kernel (the kernels are forward-only; every launch counter stays 0
    across the phase): (a) a 2-layer cut of musicgen-large at published
@@ -216,7 +230,6 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
-PEAK_TF32_FLOPS = 495e12      # H100 SXM dense TF32 tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 TOL = {"float32": 2e-5,       # tests/test_kernels.py:24: fp32 sums reorder
        "bfloat16": 5e-2}      # tests/test_kernels.py:25: one bf16 ulp ~ 1e-2
@@ -316,9 +329,14 @@ DP_NEXT_RTOL = 1e-3
 # TP_TRAIN_STEPS bf16 steps, the timed run TP_TIMED_STEPS after a warm-up
 TP_TRAIN_WORLD, TP_TRAIN_LAYERS = 2, 2
 TP_TRAIN_STEPS, TP_TIMED_STEPS = 8, 3
-# the train phase's (c): full-width, full-depth musicgen steps (25-34 s
-# each on the H100; 3 until the fsdp phase came, which needs the room)
-TRAIN_FULL_STEPS = 2
+# the train phase's (c): full-width, full-depth musicgen steps (25-36 s
+# each on the H100; 3 until the fsdp phase came, 2 until the dryrun phase
+# took the script past 900 s)
+TRAIN_FULL_STEPS = 1
+# the dryrun phase: the one-rank paths whose prefill group and decode
+# step the dry run (``repro_torch.launch.dryrun``) is held to on the card;
+# the parallel phase's T1 holds its record of collectives
+DRYRUN_ARCHS = ("musicgen-large", "qwen3-14b")
 # the fsdp phase: a world of FSDP_WORLD gloo ranks on the card at (data
 # FSDP_WORLD) under strategy "fsdp_tp"; (g1) serves the first
 # FSDP_REQUESTS of phase 4's requests, FSDP_NEW_TOKENS each, on the
@@ -890,6 +908,104 @@ def first_decode_recorded(lm):
         del lm.prefill, lm.decode
 
 
+def serve_steps(lm, rt, device):
+    """Phase 5's one-rank prefill group (the first window's prompts of the
+    longest length: 2 x 512) and decode step (batch MAX_BATCH over a
+    MAX_LEN cache, half way through the first wave) on ``lm`` under the
+    runtime ``rt`` (None: one rank), as (name, step, args) triples for
+    ``launch.dryrun.record``: tokens drawn from a seed on the card, or
+    meta tensors of the same shapes for the dry run."""
+    cfg = lm.cfg
+    first = [PLENS[i % len(PLENS)] for i in range(MAX_BATCH)]
+    S = max(first)
+    ncb = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    gen = torch.Generator().manual_seed(8)
+
+    def ints(shape, high):
+        if device == "meta":
+            return torch.empty(shape, dtype=torch.int32, device="meta")
+        return torch.randint(1, high, shape, generator=gen,
+                             dtype=torch.int32).to(device)
+
+    pre = {"tokens": ints((first.count(S), S) + ncb, cfg.vocab_size)}
+    window = rt.seq_window(cfg, MAX_LEN) if rt is not None else None
+    caches = lm.init_cache(MAX_BATCH, MAX_LEN if window is None
+                           else window[1] - window[0], rt)
+    lens = [p + NEW_TOKENS // 2 for p in first]
+    dec = {"tokens": ints((MAX_BATCH, 1) + ncb, cfg.vocab_size),
+           "lengths": (torch.empty((MAX_BATCH,), dtype=torch.int32,
+                                   device="meta") if device == "meta" else
+                       torch.tensor(lens, dtype=torch.int32, device=device))}
+    return [("prefill", lambda: lm.prefill(pre, rt),
+             {"params": lm.params, "batch": pre}),
+            ("decode", lambda: lm.decode(dec["tokens"], dec["lengths"],
+                                         caches, rt=rt),
+             {"params": lm.params, "batch": dec, "caches": caches})]
+
+
+def phase_dryrun_one_rank(lm, smi):
+    """(a) and (c) of the dryrun phase on a path of phase 4 (its weights
+    resident): the dry run of its prefill group and decode step on meta
+    tensors (``launch.dryrun.record``), then the same step on the card
+    after one warm-up call. The dry run's launches by kernel must equal
+    ``ops.launch_counts()`` on the card, and its params, cache and batch
+    bytes the live tensors'; its predicted peak is printed beside
+    ``max_memory_allocated`` with the gap, and its counted FLOPs over the
+    card's step time as a share of the bf16 peak (a report)."""
+    from repro_torch.bridge import meta_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import record
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel.check import bytes_held
+    cfg = lm.cfg
+    meta = LM(cfg, meta_params(cfg), device="meta")
+    for (name, step, args), (_, mstep, margs) in zip(
+            serve_steps(lm, None, "cuda"), serve_steps(meta, None, "meta")):
+        rec, _, _ = record(mstep, margs)
+        step()                                # warm-up: cuBLAS, scratch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: rec["kernels"].get(k, {}).get("launches", 0)
+                for k in counts}
+        check(counts == want, f"dryrun {cfg.name} {name}: the card launched"
+              f" {counts}, the dry run counts {want}")
+        held = rec["memory"]["held"]
+        live = {"params": bytes_held(lm.params),
+                "caches": bytes_held(args.get("caches", {})),
+                "batch": bytes_held(args["batch"])}
+        check(all(held[k] == v for k, v in live.items()),
+              f"dryrun {cfg.name} {name}: the dry run holds {held}, the "
+              f"card's tensors {live}")
+        m = rec["memory"]
+        temp = peak - base
+        flops = rec["cost"]["flops"]
+        phase("dryrun", "one rank", f"{cfg.name} {name}: launches {counts} "
+              f"on the card = the dry run's; params {live['params']} B, "
+              f"caches {live['caches']} B, batch {live['batch']} B as the "
+              f"dry run holds them; peak predicted {m['peak_bytes'] / 2**30:.3f}"
+              f" GiB (args {m['argument_bytes'] / 2**30:.3f} + step "
+              f"{(m['peak_bytes'] - m['argument_bytes']) / 2**30:.3f}), "
+              f"max_memory_allocated {peak / 2**30:.3f} GiB (resident "
+              f"before the step {base / 2**30:.3f}, step {temp / 2**30:.3f})"
+              f": gap {(peak - m['peak_bytes']) / 2**30:+.3f} GiB, of it the "
+              f"step's {(temp - (m['peak_bytes'] - m['argument_bytes'])) / 2**30:+.3f}"
+              f" (allocator rounding, cuBLAS workspace; the rest is what "
+              f"else is resident: at prefill the decode step's caches, "
+              f"built with it, and the decode kernel's scratch); step "
+              f"{secs * 1e3:.3f} ms on the card, {flops:.4e} FLOPs counted "
+              f"({rec['cost']['flops_kernels']:.4e} in the kernels) = "
+              f"{flops / secs / PEAK_BF16_FLOPS:.2%} of the bf16 peak; dry "
+              f"run {rec['run_s']:.3f} s on the host; {smi}")
+
+
 def layer_kinds(cfg):
     """(attention layers, Mamba2 layers, MoE layers) of a config."""
     kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
@@ -1000,6 +1116,8 @@ def phase_serve(arch, layers, smoke, why, smi):
             moe_counts_by_t = moe_counts(lm)
     times = time_engine(lm, smi)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    if arch in DRYRUN_ARCHS:
+        phase_dryrun_one_rank(lm, smi)
     phase(5, "times", f"{cfg.name}: peak device memory {peak:.2f} GiB "
           f"(max_memory_allocated, weights {n_params * lm.dtype.itemsize / 2**30:.2f}"
           f" GiB); {smi}")
@@ -1174,12 +1292,16 @@ def kernel_widths():
             setattr(mod, attr, fn)
 
 
-def _tp_run(mesh, arch, layers, over, modes, first_path):
+def _tp_run(mesh, arch, layers, over, modes, first_path, record=False):
     """One parallel run on this rank: draw the path's weights (phase 4's
     seed) keeping this rank's slices, serve phase 4's requests in each
     engine mode, check the launches, the widths each kernel saw and the
     pages; the contiguous run's first decode step
-    (``first_decode_recorded``) goes to ``first_path``. Returns what the parent prints and checks."""
+    (``first_decode_recorded``) goes to ``first_path``. With ``record``,
+    the collectives of one prefill group and one decode step
+    (``serve_steps``) under the dry run's recorder
+    (``launch.comm_analysis``), for the dryrun phase's (b). Returns what
+    the parent prints and checks."""
     import numpy as np
     from repro_torch.bridge import init_params, meta_params
     from repro_torch.configs.base import ParallelConfig
@@ -1254,6 +1376,14 @@ def _tp_run(mesh, arch, layers, over, modes, first_path):
                      "decode_ms": [1e3 * x for x in step_s]}
         del eng
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if record:
+        from repro_torch.launch.comm_analysis import record_collectives
+        res["recorded"] = {}
+        for name, step, _ in serve_steps(lm, rt, "cuda"):
+            with record_collectives() as rec:
+                step()
+            torch.cuda.synchronize()
+            res["recorded"][name] = [op.key() for op in rec.ops]
     return res
 
 
@@ -1280,7 +1410,8 @@ def _parallel_rank(rank, world, port, out_dir, runs, cuts):
                "coords": mesh.coords}
         for name, arch, layers, over, modes in runs:
             res[name] = _tp_run(mesh, arch, layers, over, modes,
-                                out / f"first_{name}_{rank}.pt")
+                                out / f"first_{name}_{rank}.pt",
+                                record=name == "T1")
             free_device_memory()
         for arch in cuts:
             small = cut_config(arch)
@@ -1502,6 +1633,41 @@ def _median(xs):
     return statistics.median(xs) if xs else float("nan")
 
 
+def check_recorded_collectives(cfg, parallel, recorded, smi):
+    """(b) of the dryrun phase: each rank's recorded collectives of a
+    prefill group and a decode step (``_tp_run(record=True)``) equal the
+    dry run's for the same rank of a fake group of the same world at
+    mesh (1, W), kind for kind, dtype, bytes and group, in order."""
+    from repro_torch.bridge import meta_params
+    from repro_torch.launch.dryrun import fake_world, record
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import LM, Runtime
+    W = len(recorded)
+    for r in range(W):
+        t0 = time.perf_counter()
+        with fake_world(W, r):
+            mesh = make_mesh(1, W, device="meta")
+            meta = LM(cfg, meta_params(cfg, mesh=mesh, parallel=parallel),
+                      device="meta")
+            for name, step, args in serve_steps(
+                    meta, Runtime(parallel, mesh), "meta"):
+                _, _, coll = record(step, args, transport="gloo")
+                got = json.loads(json.dumps([op.key() for op in coll]))
+                want = recorded[r][name]
+                check(got == want, f"dryrun (T1) rank {r} {name}: the dry "
+                      f"run records {len(got)} collectives, the card's "
+                      f"ranks {len(want)}; first difference at "
+                      f"{next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))}")
+                kinds = {}
+                for kind, _, nbytes, _ in got:
+                    kinds[kind] = kinds.get(kind, 0) + nbytes
+                phase("dryrun", "T1", f"{cfg.name} rank {r} of (1, {W}) "
+                      f"{name}: {len(got)} collectives on the card's gloo "
+                      f"ranks = the dry run's, in order (kind, dtype, bytes,"
+                      f" group); bytes by kind {kinds}; dry run "
+                      f"{time.perf_counter() - t0:.2f} s on the host; {smi}")
+
+
 def phase_parallel(single, smi, runs=PARALLEL_RUNS, cuts=TP_CUTS):
     """Serving across ranks (``repro_torch.parallel``): a world of 2 ranks
     on the card over gloo, each drawing phase 4's weights and keeping its
@@ -1527,6 +1693,7 @@ def phase_parallel(single, smi, runs=PARALLEL_RUNS, cuts=TP_CUTS):
 
     import torch.multiprocessing as mp
     from repro_torch.bridge import init_params
+    from repro_torch.configs.base import ParallelConfig
     from repro_torch.models.lm import LM
     from repro_torch.parallel.check import join_heads
     with socket.socket() as s:
@@ -1595,6 +1762,9 @@ def phase_parallel(single, smi, runs=PARALLEL_RUNS, cuts=TP_CUTS):
             check(abs(held - T1_GIB) <= 0.02 * T1_GIB,
                   f"parallel (T1): a rank holds {held:.2f} GiB, not "
                   f"{T1_GIB} +- 2 %")
+            check_recorded_collectives(
+                cfg, ParallelConfig(**over),
+                [res[name]["recorded"] for res in ranks], smi)
         if len(modes) > 1:
             a, b = (ranks[0][name][m]["served"] for m in modes[:2])
             check(a == b, f"parallel ({name}): tokens or finish order "
@@ -1777,12 +1947,11 @@ def flash_shape(label, heads, hdim, first, flush, gen, plain=True):
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
-    S, elt = max(first), 2
+    from repro_torch.kernels import flash_attention as fa
+    S = max(first)
     BH = first.count(S) * heads
     q, k, v = (rand((BH, S, hdim), torch.bfloat16, gen) for _ in range(3))
-    pairs = sum(min(i + 1, S) for i in range(S))
-    b_ms, b_by = bound(4 * BH * S * hdim * elt,
-                       (4 * hdim * pairs * BH, PEAK_BF16_FLOPS))
+    b_ms, b_by = fa.cost(BH, S, S, hdim, torch.bfloat16).bound()
     err = max_err(flash_attention(q, k, v, causal=True),
                   flash_attention_ref(q, k, v), TOL["bfloat16"])
     ms = time_ms(lambda: flash_attention(q, k, v), flush)
@@ -1865,10 +2034,12 @@ def tp_rows(by_run, flush, gen):
     return rows
 
 
-def attention_rows(launches, kimi_launches, flush, gen):
+def attention_rows(launches, kimi_launches, arctic_launches, flush, gen):
     """Rows of flash, decode and paged decode at musicgen's heads (arctic's
-    beside them in the shape text), and of the same three at kimi-k2's
-    hd-112 heads (H 64, KVH 8), whose launches are the kimi path's."""
+    decode beside them in the shape text), of flash at arctic's hd-128
+    heads (H 56), whose launches are the arctic path's, and of the same
+    three at kimi-k2's hd-112 heads (H 64, KVH 8), whose launches are the
+    kimi path's."""
     from repro_torch.configs import get_config
     from repro_torch.models.blocks import DECODE_BLOCK_S
 
@@ -1882,8 +2053,7 @@ def attention_rows(launches, kimi_launches, flush, gen):
     first = [PLENS[i % len(PLENS)] for i in range(MAX_BATCH)]
     arctic = get_config("arctic-480b")
     kimi = get_config("kimi-k2-1t-a32b")
-    mg, ar, km = (flash_shape(label, heads, hdim, first, flush, gen,
-                              plain=label != "arctic")
+    mg, ar, km = (flash_shape(label, heads, hdim, first, flush, gen)
                   for label, heads, hdim in (
                       ("musicgen", H, hd),
                       ("arctic", arctic.n_heads, arctic.head_dim),
@@ -1895,11 +2065,18 @@ def attention_rows(launches, kimi_launches, flush, gen):
         launches=launches["flash_attention"], max_abs_err=mg["err"],
         ms=mg["ms"], plain_ms=mg["plain"], bound_ms=mg["b_ms"],
         bound_by=mg["b_by"], library_ms=mg["lib"],
-        shape=f"{mg['label']}; {ar['label']}: kernel {ar['ms']:.4f} ms, "
-              f"library {ar['lib']:.4f} ms, bound {ar['b_ms']:.4f} ms "
-              f"({ar['b_by']}), max abs err {ar['err']:.3e}; library: "
-              "scaled_dot_product_attention under sdpa_kernel("
-              "SDPBackend.FLASH_ATTENTION)"))
+        shape=f"{mg['label']}; library: scaled_dot_product_attention "
+              "under sdpa_kernel(SDPBackend.FLASH_ATTENTION)"))
+    rows.append(dict(
+        name="flash_attention hd128", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:98",
+        launches=arctic_launches["flash_attention"], max_abs_err=ar["err"],
+        ms=ar["ms"], plain_ms=ar["plain"], bound_ms=ar["b_ms"],
+        bound_by=ar["b_by"], library_ms=ar["lib"],
+        shape=f"{ar['label']} (arctic-480b's heads; launches: the arctic "
+              "path's); library: scaled_dot_product_attention under "
+              "sdpa_kernel(SDPBackend.FLASH_ATTENTION)"))
     rows.append(dict(
         name="flash_attention hd112", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1969,24 +2146,21 @@ def decode_shape(label, H, KVH, hd, first, flush, gen):
     phase 4's first wave, bf16: kernel, plain and masked-SDPA times,
     bounds and errors."""
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import cost, decode_attention
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention)
     from repro_torch.kernels.ref import (
         decode_attention_ref, paged_decode_attention_ref)
     from repro_torch.models.blocks import DECODE_BLOCK_S
-    B, dtype, elt = MAX_BATCH, torch.bfloat16, 2
+    B, dtype = MAX_BATCH, torch.bfloat16
     lens = [p + NEW_TOKENS // 2 for p in first]
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     qd = rand((B, H, hd), dtype, gen)
     kc = rand((B, MAX_LEN, KVH, hd), dtype, gen)
     vc = rand((B, MAX_LEN, KVH, hd), dtype, gen)
-    kv_bytes = 2 * sum(lens) * KVH * hd * elt
-    io_bytes = 2 * B * H * hd * elt + 4 * B
-    flops = 4 * sum(lens) * H * hd
     r = dict(label=f"{label} B={B} H={H} KVH={KVH} hd={hd} S={MAX_LEN} "
                    f"block_s={DECODE_BLOCK_S} lengths={lens} bf16")
-    r["b_ms"], r["b_by"] = bound(kv_bytes + io_bytes, (flops, PEAK_BF16_FLOPS))
+    r["b_ms"], r["b_by"] = cost(B, H, KVH, hd, sum(lens), dtype).bound()
     valid = (torch.arange(MAX_LEN, device="cuda")[None, :]
              < lengths[:, None])[:, None, None, :]
     kt, vt = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
@@ -2015,8 +2189,8 @@ def decode_shape(label, H, KVH, hd, first, flush, gen):
     paged = run_paged()
     check(torch.equal(paged, out), f"timed shapes ({label}): paged != "
           "contiguous")
-    r["paged_b_ms"], r["paged_b_by"] = bound(
-        kv_bytes + io_bytes + table.numel() * 4, (flops, PEAK_BF16_FLOPS))
+    r["paged_b_ms"], r["paged_b_by"] = cost(
+        B, H, KVH, hd, sum(lens), dtype, table=table.numel()).bound()
     r["paged_err"] = max_err(paged, paged_decode_attention_ref(
         qd, kp, vp, table, lengths), TOL["bfloat16"])
     r["paged_ms"] = time_ms(run_paged, flush)
@@ -2085,23 +2259,22 @@ def gmm_row(launches, counts_by_t, flush, gen):
     row: the contract torch.bmm computes), then with the filled counts of
     a decode step (``moe_counts``), whose bound prices only the filled
     experts' weights; arctic's largest prefill group (C = 30) beside."""
-    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.moe_gmm import cost, moe_gmm
     from repro_torch.kernels.ref import moe_gmm_ref
     E, d, f = 128, 7168, 4864
     w = rand((E, d, f), torch.float32, gen).mul_(d ** -0.5).to(torch.bfloat16)
     extra = []
     for C in (30, 1):
         x = rand((E, C, d), torch.bfloat16, gen)
-        b_ms, b_by = bound(2 * (E * d * f + E * C * d + E * C * f),
-                           (2 * E * C * d * f, PEAK_BF16_FLOPS))
+        b_ms, b_by = cost(E, C, d, f, torch.bfloat16).bound()
         ms = time_ms(lambda: moe_gmm(x, w), flush)
         lib = time_ms(lambda: torch.bmm(x, w), flush)
         extra.append(f"C={C}: kernel {ms:.4f} ms, torch.bmm {lib:.4f} ms, "
                      f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound")
     T, counts = MAX_BATCH, counts_by_t[MAX_BATCH]
     live, filled = int((counts > 0).sum()), int(counts.sum())
-    c_ms, c_by = bound(2 * (live * d * f + filled * d + E * f),
-                       (2 * filled * d * f, PEAK_BF16_FLOPS))
+    c_ms, c_by = cost(E, 1, d, f, torch.bfloat16, live=live,
+                      rows=filled).bound()
     err = max_err(moe_gmm(x, w, counts), moe_gmm_ref(x, w, counts),
                   *GMM_TOL["bfloat16"])
     cms = time_ms(lambda: moe_gmm(x, w, counts), flush)
@@ -2134,7 +2307,7 @@ def gmm_split_sweep(counts_by_t, flush, gen, name):
     one ``plan`` picks. The split rule in kernels/moe_gmm.py rests on
     these times."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.moe_gmm import launch, plan
+    from repro_torch.kernels.moe_gmm import cost, launch, plan
     from repro_torch.kernels.ref import moe_gmm_ref
     from repro_torch.models.moe import capacity
     arctic = get_config("arctic-480b")
@@ -2156,8 +2329,8 @@ def gmm_split_sweep(counts_by_t, flush, gen, name):
             best = min(times, key=times.get)
             live = E if counts is None else int((counts > 0).sum())
             rows = E * C if counts is None else int(counts.sum())
-            b_ms, b_by = bound(2 * (live * d * f + rows * d + E * C * f),
-                               (2 * rows * d * f, PEAK_BF16_FLOPS))
+            b_ms, b_by = cost(E, C, d, f, torch.bfloat16, live=live,
+                              rows=rows).bound()
             what = ("every row filled" if counts is None else
                     f"T {T}: {live} of {E} experts filled, {rows} rows")
             phase(5, "times", f"moe_gmm split sweep d {d} -> f {f}, C {C} "
@@ -2173,35 +2346,20 @@ def gmm_split_sweep(counts_by_t, flush, gen, name):
         free_device_memory()
 
 
-def ssd_bytes(B, S, nh, hp, ng, ds, elt):
-    """Bytes one ssd_scan call must move: x, dt, A, B and C read once, y
-    and the final state written once."""
-    return (elt * B * S * nh * hp + 4 * B * S * nh + 4 * nh
-            + 2 * elt * B * S * ng * ds + 4 * B * S * nh * hp
-            + 4 * B * nh * hp * ds)
-
-
 def ssd_bound(B, S, nh, hp, ng, ds, chunk, elt):
-    """(ms, by) of one ssd_scan call: ``ssd_bytes``; the C.B scores
-    (operands in x's dtype) once per (b, chunk, group) at the bf16
-    tensor-core rate, the products with an fp32 operand (the scores times
-    dt x, the inter-chunk term, the state update) per head at the TF32
-    tensor-core rate the bf16 kernel runs them at."""
-    tri = chunk * (chunk + 1) // 2
-    nc = S // chunk
-    scores = 2 * nc * B * ng * tri * ds
-    rest = 2 * nc * B * nh * (tri * hp + 2 * chunk * hp * ds)
-    return bound(ssd_bytes(B, S, nh, hp, ng, ds, elt),
-                 (scores, PEAK_BF16_FLOPS), (rest, PEAK_TF32_FLOPS))
+    """(ms, by) of one bf16 ssd_scan call (``kernels.ssd_scan.cost``)."""
+    from repro_torch.kernels.ssd_scan import cost
+    return cost(B, S, nh, hp, ng, ds, chunk, torch.bfloat16).bound()
 
 
 def ssd_bound_fp32(B, S, nh, hp, ng, ds, chunk, elt):
     """The bound of a kernel that runs the fp32-operand products on CUDA
     cores, as PERF.md counted it before the tensor-core kernel: the
     scores once per head at the bf16 rate, the rest at the fp32 rate."""
+    from repro_torch.kernels.ssd_scan import io_bytes
     tri = chunk * (chunk + 1) // 2
     n = 2 * (S // chunk) * B * nh
-    return bound(ssd_bytes(B, S, nh, hp, ng, ds, elt),
+    return bound(io_bytes(B, S, nh, hp, ng, ds, elt),
                  (n * tri * ds, PEAK_BF16_FLOPS),
                  (n * (tri * hp + 2 * chunk * hp * ds), PEAK_FP32_FLOPS))
 
@@ -2275,11 +2433,12 @@ def ssd_row(launches, flush, gen, name):
     return row
 
 
-def phase_times(launches, kimi_launches, by_run, arctic_counts, name,
+def phase_times(launches, by_path, by_run, arctic_counts, name,
                 per_call):
     gen = torch.Generator(device="cuda").manual_seed(4)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-    rows = attention_rows(launches, kimi_launches, flush, gen)
+    rows = attention_rows(launches, by_path["kimi-k2-1t-a32b"],
+                          by_path["arctic-480b"], flush, gen)
     rows.append(gmm_row(launches, arctic_counts, flush, gen))
     free_device_memory()
     gmm_split_sweep(arctic_counts, flush, gen, name)
@@ -3944,7 +4103,7 @@ def main():
         launches[k] += v
     free_device_memory()
     clock(t0, "dsp")
-    rows = phase_times(launches, by_path["kimi-k2-1t-a32b"], by_run,
+    rows = phase_times(launches, by_path, by_run,
                        served["arctic-480b"].moe_counts, smi, per_call)
     free_device_memory()
     clock(t0, "times")

@@ -6,6 +6,10 @@ Each row is an arithmetic token sequence (stride 1-4, random phase), so
 the cross entropy demonstrably falls; MusicGen's codebook streams get the
 delay pattern, and the vision stub's rows get standard-normal patch
 embeddings in the model's dtype.
+
+``input_specs`` gives what a step consumes as meta tensors (the
+reference's ``ShapeDtypeStruct`` specs): the dry run (``launch.cells``)
+runs the port's steps on them.
 """
 from __future__ import annotations
 
@@ -13,12 +17,74 @@ import numpy as np
 import torch
 
 from repro_torch.models.lm import DTYPES, resolve_device
+from repro_torch.parallel.collectives import batch_rows
 
 
 def _token_shape(cfg, B: int, S: int) -> tuple:
     if cfg.n_codebooks > 1:
         return (B, S, cfg.n_codebooks)
     return (B, S)
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _text_len(cfg, S: int) -> int:
+    return S - cfg.n_patches if cfg.vision_stub else S
+
+
+def _rows(shape, mesh) -> int:
+    """The batch rows of a spec: the global batch, or under ``mesh``
+    this rank's rows where the batch divides over its batch axes
+    (``parallel.collectives.batch_rows``)."""
+    B = shape.global_batch
+    rows = batch_rows(mesh, B) if mesh is not None else None
+    return B if rows is None else rows[0].stop - rows[0].start
+
+
+def train_input_specs(cfg, shape, mesh=None) -> dict:
+    """tokens, targets (B, S_txt[, ncb]) int32, mask (B, S_txt) fp32
+    and, with the vision stub, patches (B, Np, d) in the model's dtype."""
+    B, S_txt = _rows(shape, mesh), _text_len(cfg, shape.seq_len)
+    specs = {"tokens": _meta(_token_shape(cfg, B, S_txt), torch.int32),
+             "targets": _meta(_token_shape(cfg, B, S_txt), torch.int32),
+             "mask": _meta((B, S_txt), torch.float32)}
+    if cfg.vision_stub:
+        specs["patches"] = _meta((B, cfg.n_patches, cfg.d_model),
+                                 DTYPES[cfg.dtype])
+    return specs
+
+
+def prefill_input_specs(cfg, shape, mesh=None) -> dict:
+    B, S_txt = _rows(shape, mesh), _text_len(cfg, shape.seq_len)
+    specs = {"tokens": _meta(_token_shape(cfg, B, S_txt), torch.int32)}
+    if cfg.vision_stub:
+        specs["patches"] = _meta((B, cfg.n_patches, cfg.d_model),
+                                 DTYPES[cfg.dtype])
+    return specs
+
+
+def decode_input_specs(cfg, shape, mesh=None) -> dict:
+    """One new token a row against a cache of capacity seq_len."""
+    B = _rows(shape, mesh)
+    return {"tokens": _meta(_token_shape(cfg, B, 1), torch.int32),
+            "lengths": _meta((B,), torch.int32)}
+
+
+def input_specs(cfg, shape, mesh=None) -> dict:
+    """The batch of a ``shape.kind`` step as meta tensors: the global
+    batch, which the port's steps take on every rank (a data-parallel
+    train step takes its rows itself, serving keeps the batch whole), or
+    with ``mesh`` this rank's rows of it, as the reference's specs shard
+    them."""
+    if shape.kind == "train":
+        return train_input_specs(cfg, shape, mesh)
+    if shape.kind == "prefill":
+        return prefill_input_specs(cfg, shape, mesh)
+    if shape.kind == "decode":
+        return decode_input_specs(cfg, shape, mesh)
+    raise ValueError(shape.kind)
 
 
 def apply_delay_pattern(tokens: np.ndarray, pad: int = 0) -> np.ndarray:

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import Cost, rate_of
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
 
 MAX_GROUP = 8   # query heads per KV head the kernel holds
@@ -115,3 +116,24 @@ def decode_attention(q, k_cache, v_cache, lengths, *, block_s: int = 512):
 
 
 decode_attention.launches = 0
+
+
+def cost(B: int, H: int, KVH: int, hd: int, positions: int, dtype,
+         table: int = 0):
+    """``kernels.cost.Cost`` of one call (this module's or the paged
+    one's): the K/V of ``positions`` cache positions over all rows (the
+    sum of the lengths; a shape-only count takes B x the cache depth)
+    read once, q and the lengths read and o written once, ``table`` page
+    table entries read; QK^T and PV over those positions for every query
+    head."""
+    if B == 0:
+        return Cost(0, 0)
+    elt = dtype.itemsize
+    return Cost(1, 2 * positions * KVH * hd * elt + 2 * B * H * hd * elt
+                + 4 * B + 4 * table,
+                ((4 * positions * H * hd, rate_of(dtype)),))
+
+
+def meta(q):
+    """The output of a decode call on ``q`` as a meta tensor."""
+    return torch.empty_like(q)

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import Cost, rate_of
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 112, 128)   # 112: kimi-k2's 7168 / 64
@@ -54,3 +55,24 @@ def flash_attention(q, k, v, *, causal: bool = True):
 
 
 flash_attention.launches = 0
+
+
+def cost(BH: int, S: int, Sk: int, hd: int, dtype, causal: bool = True):
+    """``kernels.cost.Cost`` of one call: q, k, v read and o written
+    once; QK^T and PV over the pairs a query sees (causal: query i sees
+    keys 0..i, top-left aligned)."""
+    if BH == 0 or S == 0:
+        return Cost(0, 0)
+    if not causal:
+        pairs = S * Sk
+    elif S <= Sk:
+        pairs = S * (S + 1) // 2
+    else:
+        pairs = Sk * (Sk + 1) // 2 + (S - Sk) * Sk
+    return Cost(1, 2 * BH * (S + Sk) * hd * dtype.itemsize,
+                ((4 * BH * hd * pairs, rate_of(dtype)),))
+
+
+def meta(q):
+    """The output of ``flash_attention`` on q as a meta tensor."""
+    return torch.empty_like(q)

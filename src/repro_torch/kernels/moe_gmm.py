@@ -11,6 +11,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import Cost, rate_of
 from repro_torch.kernels.flash_attention import DTYPES
 
 BK = 64                # d per pipeline stage of the bf16 kernel
@@ -112,3 +113,27 @@ def launch(x, w, counts, p: Plan):
 
 
 moe_gmm.launches = 0
+
+
+def cost(E: int, C: int, d: int, f: int, dtype, live: int | None = None,
+         rows: int | None = None):
+    """``kernels.cost.Cost`` of one ``moe_gmm`` call: the ``live``
+    experts' weights (those with a filled row; all E by default) and the
+    ``rows`` filled rows of x (all E x C by default) read once, the whole
+    (E, C, f) output written once; 2 d f operations a filled row. A
+    split over d (``plan``; bf16 only) runs a second kernel that sums
+    the partials."""
+    if E * C * f == 0:
+        return Cost(0, 0)
+    live = E if live is None else live
+    rows = E * C if rows is None else rows
+    splits = d_splits(C, d) if dtype == torch.bfloat16 else 1
+    elt = dtype.itemsize
+    return Cost(1 + (splits > 1),
+                elt * (live * d * f + rows * d + E * C * f),
+                ((2 * rows * d * f, rate_of(dtype)),))
+
+
+def meta(x, w):
+    """The output of ``moe_gmm(x, w)`` as a meta tensor."""
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))

@@ -6,7 +6,8 @@ Replaces ``repro.kernels.paged_decode_attention.paged_decode_attention``
 page, so with ``page_size`` equal to the contiguous kernel's ``block_s``
 its output is bit-identical to ``decode_attention`` over the same tokens.
 K/V are read in place through the table; no gathered copy is made. The
-plain version is ``kernels.ref.paged_decode_attention_ref``.
+plain version is ``kernels.ref.paged_decode_attention_ref``. Its cost
+is ``decode_attention.cost`` with the table's entries.
 """
 from __future__ import annotations
 
@@ -55,3 +56,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths):
 
 
 paged_decode_attention.launches = 0
+
+
+def meta(q):
+    """The output of ``paged_decode_attention`` on q as a meta tensor."""
+    return torch.empty_like(q)

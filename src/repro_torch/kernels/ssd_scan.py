@@ -12,6 +12,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import Cost
 from repro_torch.kernels.flash_attention import DTYPES
 
 HEAD_DIMS = (16, 64)      # hp the kernel is built for
@@ -112,3 +113,39 @@ def launch(x, dt, A, Bg, Cg, y, state, chunk: int, tile: int):
 
 
 ssd_scan.launches = 0
+
+
+def io_bytes(B, S, nh, hp, ng, ds, elt) -> int:
+    """Bytes one call must move: x, dt, A, B and C read once, y and the
+    final state (fp32) written once."""
+    return (elt * B * S * nh * hp + 4 * B * S * nh + 4 * nh
+            + 2 * elt * B * S * ng * ds + 4 * B * S * nh * hp
+            + 4 * B * nh * hp * ds)
+
+
+def cost(B: int, S: int, nh: int, hp: int, ng: int, ds: int, chunk: int,
+         dtype):
+    """``kernels.cost.Cost`` of one call: ``io_bytes``; the C.B scores
+    (operands in x's dtype) once per (row, chunk, group), and the
+    products with an fp32 operand (the scores times dt x, the
+    inter-chunk term, the state update) per head. The bf16 kernel runs
+    the scores on bf16 tensor cores and the rest on TF32 ones; the fp32
+    kernel runs both on CUDA cores."""
+    if B == 0 or nh == 0:
+        return Cost(0, 0)
+    tri = chunk * (chunk + 1) // 2
+    nc = S // chunk
+    scores = 2 * nc * B * ng * tri * ds
+    rest = 2 * nc * B * nh * (tri * hp + 2 * chunk * hp * ds)
+    bf16 = dtype == torch.bfloat16
+    return Cost(1, io_bytes(B, S, nh, hp, ng, ds, dtype.itemsize),
+                ((scores, "bf16" if bf16 else "fp32"),
+                 (rest, "tf32" if bf16 else "fp32")))
+
+
+def meta(x, Bg):
+    """(y, final state) of ``ssd_scan`` on x and Bg as meta tensors."""
+    B, S, nh, hp = x.shape
+    ds = Bg.shape[3]
+    return (torch.empty((B, S, nh, hp), dtype=torch.float32, device="meta"),
+            torch.empty((B, nh, hp, ds), dtype=torch.float32, device="meta"))

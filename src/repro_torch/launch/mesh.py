@@ -16,7 +16,11 @@ init_process_group``, gloo or NCCL) before building a mesh; building one
 creates subgroups, a collective call that every rank makes in the same
 order. The device comes from the caller, as everywhere in the port: the
 card by default (``cuda:LOCAL_RANK`` under torchrun, else the rank modulo
-the cards), ``"cpu"`` when asked.
+the cards), ``"cpu"`` when asked, or ``"meta"`` for the dry run
+(``launch.dryrun``), whose ranks hold shapes only under a fake process
+group: the mesh's groups and coordinates are the real ones, and every
+tensor built on its device is a meta tensor, so the dry run needs no
+second device rule.
 """
 from __future__ import annotations
 

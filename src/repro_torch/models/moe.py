@@ -65,8 +65,13 @@ def route(p, cfg, x, data=None):
     wts, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     wts, ids = wts[..., :cfg.top_k], ids[..., :cfg.top_k]
     wts = wts / torch.clamp(wts.sum(dim=-1, keepdim=True), min=1e-9)
-    # load-balance loss (Switch): E * sum_e mean_prob_e * frac_assign_e
-    counts = torch.bincount(ids.reshape(-1), minlength=cfg.n_experts).float()
+    # load-balance loss (Switch): E * sum_e mean_prob_e * frac_assign_e;
+    # the counts as a scatter of ones, which a meta tensor (the dry run)
+    # can run and ``bincount`` cannot: the same integers
+    flat = ids.reshape(-1)
+    counts = torch.zeros(cfg.n_experts, dtype=torch.int64,
+                         device=ids.device).scatter_add_(
+        0, flat, torch.ones_like(flat)).float()
     lse2 = torch.logsumexp(logits, dim=-1).square()
     if data is None:
         frac = counts / torch.clamp(counts.sum(), min=1.0)
@@ -95,14 +100,26 @@ def dispatch(ids, cfg):
     token-major, k-minor order; an assignment is kept when its slot is
     below C. ``tok[e, c]`` is the token in slot c of expert e, or T for an
     empty slot.
+
+    Every shape here follows from the call's shapes alone: a dropped
+    assignment writes into a spare slot past the table, which is cut
+    off, where a boolean index would give a shape that depends on the
+    data (a host sync on the card, no shape at all on a meta tensor).
+    A kept slot has one writer, so the table is the same.
     """
     T = ids.shape[0] * ids.shape[1]
     K, E = cfg.top_k, cfg.n_experts
     slot, kept, C = slots(ids, cfg)
-    tok = torch.full((E * C,), T, dtype=torch.int64, device=ids.device)
-    flat = ids.reshape(T * K) * C + slot
-    tok[flat[kept]] = torch.arange(T * K, device=ids.device)[kept] // K
-    return tok.reshape(E, C), slot, kept
+    tok = torch.full((E * C + 1,), T, dtype=torch.int64, device=ids.device)
+    tok[_kept_at(ids.reshape(T * K) * C + slot, kept, E * C)] = (
+        torch.arange(T * K, device=ids.device) // K)
+    return tok[:E * C].reshape(E, C), slot, kept
+
+
+def _kept_at(flat, kept, spare: int):
+    """Each assignment's slot id ``flat`` where it is kept, else the
+    spare id past the table."""
+    return torch.where(kept, flat, spare)
 
 
 def _experts(p, cfg, xe, gate, product):
@@ -163,9 +180,9 @@ def _moe_local(p, cfg, x, ids, wts, lo: int, n_local: int):
     C = tok.shape[1]
     idf = ids.reshape(T * K)
     flat = idf * C + slot
-    gate = torch.zeros(E * C, dtype=torch.float32, device=x.device)
-    gate[flat[kept]] = wts.reshape(T * K).float()[kept]
-    gate = gate.reshape(E, C, 1)
+    gate = torch.zeros(E * C + 1, dtype=torch.float32, device=x.device)
+    gate[_kept_at(flat, kept, E * C)] = wts.reshape(T * K).float()
+    gate = gate[:E * C].reshape(E, C, 1)
     if n_local < E:
         # this rank's range of the table; another rank's slots drop here
         tok, gate = tok[lo:lo + n_local], gate[lo:lo + n_local]

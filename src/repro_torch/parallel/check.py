@@ -75,15 +75,17 @@ def join_heads(parts):
 
 
 def bytes_held(params) -> int:
-    """Bytes of a nested dict of tensors (meta tensors count their
-    shapes): what a rank holds, or with ``bridge.meta_params`` and no
-    mesh, the whole model."""
+    """Bytes of a nested dict (or tuple) of tensors (meta tensors count
+    their shapes): what a rank holds, or with ``bridge.meta_params`` and
+    no mesh, the whole model; a cache tree's (k, v) pairs too."""
     total = 0
     stack = [params]
     while stack:
         node = stack.pop()
         if isinstance(node, dict):
             stack.extend(node.values())
+        elif isinstance(node, (tuple, list)):
+            stack.extend(node)
         else:
             total += node.numel() * node.element_size()
     return total

@@ -46,8 +46,17 @@ too copies it to host memory and back, so the reductions stage through
 the same copy as the rest and the transport has one rule. That is how
 the ranks of a one-card world (NCCL refuses two ranks on one card)
 exchange data; the compute stays on the card.
+
+Under the dry run (``launch.dryrun``) the process group is ``"fake"``
+and the tensors are meta: a collective moves nothing, and a fake group
+takes the transport of the backend it stands for (``fake_backend``).
+Every collective that goes on the wire is reported, as it is made, to
+the observers that ``observed`` installs (``launch.comm_analysis``
+records them): its kind, its result and its group.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -59,11 +68,51 @@ from repro_torch.parallel.sharding import (
 NEG_INF = -1e30
 
 
+# ---------------------------------------------------------------- observers
+_observers: list = []
+_fake = ["nccl"]       # the backend a "fake" process group stands for
+
+
+@contextlib.contextmanager
+def observed(fn):
+    """Within the block, call ``fn(kind, result, group)`` at every
+    collective that goes on the wire, as it is made: ``kind`` one of
+    "all-reduce", "all-gather", "reduce-scatter", "collective-permute"
+    (the reference's HLO names), ``result`` the tensor it delivers to
+    this rank (the gathered one, the reduced one, this rank's slice, the
+    received one)."""
+    _observers.append(fn)
+    try:
+        yield fn
+    finally:
+        _observers.remove(fn)
+
+
+@contextlib.contextmanager
+def fake_backend(name: str):
+    """Within the block, a ``"fake"`` process group takes the
+    transport of backend ``name`` ("nccl" or "gloo"): which of two ways
+    ``reduce_scatter`` and ``reduce_grads`` go."""
+    if name not in ("nccl", "gloo"):
+        raise ValueError(f"fake_backend: {name!r}, not 'nccl' or 'gloo'")
+    _fake.append(name)
+    try:
+        yield
+    finally:
+        _fake.pop()
+
+
+def _seen(kind: str, result, group) -> None:
+    for fn in _observers:
+        fn(kind, result, group)
+
+
 # ---------------------------------------------------------------- transport
 def gloo_transport(group) -> bool:
     """Whether ``group``'s collectives stage CUDA tensors through host
-    memory: true under gloo."""
-    return dist.get_backend(group) == "gloo"
+    memory: true under gloo, and under a fake group standing for it."""
+    backend = dist.get_backend(group)
+    return (_fake[-1] if backend == "fake" else backend) == "gloo"
 
 
 def _wire(t, group):
@@ -81,6 +130,7 @@ def all_reduce(t, group, op=dist.ReduceOp.SUM):
         return t
     w = _wire(t, group)
     dist.all_reduce(w, op=op, group=group)
+    _seen("all-reduce", w, group)
     return w.to(t.device)
 
 
@@ -98,13 +148,15 @@ def all_gather(t, dim: int, group, device=None):
     dist.all_gather(parts, w, group=group)
     device = t.device if device is None else torch.device(device)
     if parts[0].device == device:
-        return torch.cat(parts, dim=dim)
-    # staged through host memory: each part straight into its place
-    shape = list(w.shape)
-    shape[dim] *= n
-    out = torch.empty(shape, dtype=w.dtype, device=device)
-    for i, part in enumerate(parts):
-        out.narrow(dim, i * w.shape[dim], w.shape[dim]).copy_(part)
+        out = torch.cat(parts, dim=dim)
+    else:
+        # staged through host memory: each part straight into its place
+        shape = list(w.shape)
+        shape[dim] *= n
+        out = torch.empty(shape, dtype=w.dtype, device=device)
+        for i, part in enumerate(parts):
+            out.narrow(dim, i * w.shape[dim], w.shape[dim]).copy_(part)
+    _seen("all-gather", out, group)
     return out
 
 
@@ -122,6 +174,7 @@ def reduce_scatter(t, dim: int, group):
     out = torch.empty((size,) + src.shape[1:], dtype=t.dtype,
                       device=t.device)
     dist.reduce_scatter_tensor(out, src, group=group)
+    _seen("reduce-scatter", out, group)
     return out.movedim(0, dim)
 
 
@@ -244,10 +297,15 @@ def _rotate(tensors, group):
     prv = dist.get_global_rank(group, (idx - 1) % n)
     sends = [_wire(t, group) for t in tensors]
     recvs = [torch.empty_like(s) for s in sends]
-    p2p = ([dist.P2POp(dist.isend, s, nxt, group) for s in sends]
-           + [dist.P2POp(dist.irecv, r, prv, group) for r in recvs])
-    for work in dist.batch_isend_irecv(p2p):
-        work.wait()
+    # a meta tensor (the dry run) has nothing to send, and a fake group
+    # has no point-to-point transport for it
+    if not any(s.is_meta for s in sends):
+        p2p = ([dist.P2POp(dist.isend, s, nxt, group) for s in sends]
+               + [dist.P2POp(dist.irecv, r, prv, group) for r in recvs])
+        for work in dist.batch_isend_irecv(p2p):
+            work.wait()
+    for r in recvs:
+        _seen("collective-permute", r, group)
     return [r.to(t.device) for r, t in zip(recvs, tensors)]
 
 

@@ -23,6 +23,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 
@@ -205,8 +206,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     x, bc = torch.zeros(1, 16, 2, 16), torch.zeros(1, 16, 1, 16)
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan(x, torch.zeros(1, 16, 2), torch.zeros(2), bc, bc, chunk=16)
-    with pytest.raises(ValueError, match="device meta"):
-        ops.attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    # ops routes cuda, cpu and meta (the dry run's shapes) and refuses
+    # any other device: a stand-in that only reports one
+    other = SimpleNamespace(device=torch.device("xla", 0), shape=q.shape,
+                            dtype=q.dtype)
+    with pytest.raises(ValueError, match="device xla:0"):
+        ops.attention(other, other, other)
+    assert ops.attention(q.to("meta"), q.to("meta"), q.to("meta")).is_meta
 
 
 def test_cpu_serving_counts_no_launches():
