@@ -64,6 +64,26 @@ parallel. serving across ranks (``repro_torch.parallel``): a world of 2
    every step through the kernels at the rank's heads. Per rank:
    backend, bytes held against the whole model, peak memory, prefill ms
    a group and decode ms a step beside phase 5's one-rank numbers.
+batch. serving with the batch split over the batch axes (``Runtime.rows``,
+   the ``Engine``'s slots): a world of BATCH_WORLD gloo ranks on the card
+   at (data BATCH_WORLD) (``launch.world.spawn_world``), each holding 4 of
+   the 8 slots, their caches and pages, and computing only its rows. (h1)
+   BATCH_ARCH (musicgen-large) at published widths and depth serves phase
+   4's 16 requests, contiguous then paged: every rank's tokens and finish
+   order equal phase 4's one-rank run; the first admit window's prefill
+   logits (its 512-token group split, both rows moving to the other
+   rank's slots) and the first decode step on the rank's rows within
+   BATCH_LOGITS_TOL of one rank's (bit-equal at 0); a rank's caches
+   exactly half of one rank's bytes (``launch.counter.storage_bytes``)
+   and its page pool 1 + 4 x 8 pages; it prints the peak memory, prefill
+   ms a group with the seconds of the rows' moves, and decode ms a step
+   beside phase 5's one rank. (h2) jamba's smoke config in fp32 at
+   capacity factor 0.5 (all five kernels), against one rank on the card:
+   tokens equal, the first window's logits within REF_TOL on each rank's
+   rows, the assignments each MoE call drops summed over the ranks equal
+   one rank's call by call (C and the fill over the whole batch at
+   model 1). Launches, set to 0 just before each engine run and read just
+   after, go into the kernels line.
 dsp. the DSP control plane on musicgen-large at full width, depth cut to
    DSP_LAYERS of 48 (``benchmarks/torch_serve_fleet.py``, max_batch 8,
    max_len 48; phase 4 serves it at full depth): a
@@ -171,10 +191,11 @@ tp-train. training under the ``model`` axis (``train.train_step`` on a
    the leaves every rank holds whole equal bit for bit on the ranks, the
    params a rank holds measured against the count, then the TF32
    control; (f2) the cut in bf16 through ``train_loop(mesh=)``:
-   TP_TRAIN_STEPS steps with checkpoints every 4 and a preemption before
-   step 6, whose replayed steps 4-5 repeat their losses bit for bit, and
-   the next step from the world's last checkpoint on one rank outside
-   any world within DP_NEXT_RTOL of the world's; (e3)'s jamba smoke at
+   TP_TRAIN_STEPS steps with one checkpoint, at the end, and a
+   preemption before step TP_PREEMPT, whose restart from the start
+   repeats the first steps' losses bit for bit, and the next step from
+   the world's checkpoint, in the world and on one rank outside any
+   world, within DP_NEXT_RTOL; (e3)'s jamba smoke at
    capacity factor 0.5 as (f3): attention, Mamba2 heads and experts split,
    each rank dropping what one rank drops, gradients within
    TRAIN_ATOL["deep ssm"]. It prints each rank's seconds a bf16 step
@@ -190,8 +211,8 @@ fsdp. FSDP parameter storage (``ParallelConfig(strategy="fsdp_tp")``): a
    FSDP_NEW_TOKENS new tokens each, contiguous then paged, through the
    kernels (the launch counters set to 0 just before each engine run and
    read just after): every rank's tokens, finish order, prefill logits
-   and first decode step (embedding, logits, layer-0 K/V) equal one
-   rank's bit for bit, a rank stores half the bytes (measured and
+   and first decode step (embedding, logits, layer-0 K/V) on its rows
+   equal one rank's bit for bit, a rank stores half the bytes (measured and
    counted); it prints prefill ms a group and decode ms a step beside one
    rank's and the gathers' seconds (the ``head`` table and the layers).
    (g2) the dp phase's musicgen cut in fp32, one row a rank: each rank
@@ -254,8 +275,10 @@ TF32_CONTROL_MIN = 2.0
 SPIN_CYCLES = 1_000_000       # ~0.5 ms of device spin ahead of a timed call
 ARCH = "musicgen-large"
 # the dsp phase's depth: its fleet runs are host-bound (a decode step's
-# time grows with the layers), and phase 4 serves the full 48
-DSP_LAYERS = 24
+# time grows with the layers, ~7 s of the phase a layer), and phase 4
+# serves the full 48 (24 until the batch phase took the script to 900 s
+# after the fsdp and tp-train phases' cuts)
+DSP_LAYERS = 16
 # (arch, layers kept or None for all, smoke config, why)
 PATHS = (
     ("musicgen-large", None, False, "full width and depth"),
@@ -287,7 +310,18 @@ PARALLEL_RUNS = (
     ("B", "arctic-480b", 2, {"decode_kv_shard": "seq",
                              "attn_seq_parallel": True}, ("contiguous",)),
 )
-RECORDED = {arch for _, arch, _, _, _ in PARALLEL_RUNS}
+# the batch phase: a world of BATCH_WORLD gloo ranks on the card at (data
+# BATCH_WORLD), each holding MAX_BATCH / BATCH_WORLD slots and computing
+# only its rows: (h1) BATCH_ARCH at published widths and depth on phase
+# 4's requests, held to phase 4's one-rank run; (h2) jamba's smoke config
+# in fp32 at capacity factor DP_CAPACITY_FACTOR, held to one rank on the
+# card
+BATCH_WORLD, BATCH_ARCH = 2, "musicgen-large"
+# (h1)'s first admit window's prefill logits and first decode step's on a
+# rank's rows against one rank's (bf16): bit-equal in every run on the
+# H100 (PERF.md §6), so any gap fails the phase
+BATCH_LOGITS_TOL = 0.0
+RECORDED = {arch for _, arch, _, _, _ in PARALLEL_RUNS} | {BATCH_ARCH}
 # (T2) and T3's cut: published widths, 2 layers, fp32, against one rank
 TP_CUTS = ("qwen3-14b", "mamba2-1.3b")
 # qwen3-14b over 2 ranks: half of every leaf but the norms
@@ -326,9 +360,12 @@ DP_NEXT_RTOL = 1e-3
 # the tp-train phase: a world of TP_TRAIN_WORLD gloo ranks on the card at
 # (model TP_TRAIN_WORLD); qwen3-14b at published widths cut to
 # TP_TRAIN_LAYERS of 40 layers, seq 512, global batch 2; (f2) runs
-# TP_TRAIN_STEPS bf16 steps, the timed run TP_TIMED_STEPS after a warm-up
+# TP_TRAIN_STEPS bf16 steps with a preemption before step TP_PREEMPT and
+# one checkpoint (13.3 GB), at the end (8 steps, checkpoints every 4 and
+# a preemption before step 6, until the batch phase took the script past
+# 900 s); the timed run TP_TIMED_STEPS after a warm-up
 TP_TRAIN_WORLD, TP_TRAIN_LAYERS = 2, 2
-TP_TRAIN_STEPS, TP_TIMED_STEPS = 8, 3
+TP_TRAIN_STEPS, TP_PREEMPT, TP_TIMED_STEPS = 4, 2, 3
 # the train phase's (c): full-width, full-depth musicgen steps (25-36 s
 # each on the H100; 3 until the fsdp phase came, 2 until the dryrun phase
 # took the script past 900 s)
@@ -340,8 +377,11 @@ DRYRUN_ARCHS = ("musicgen-large", "qwen3-14b")
 # the fsdp phase: a world of FSDP_WORLD gloo ranks on the card at (data
 # FSDP_WORLD) under strategy "fsdp_tp"; (g1) serves the first
 # FSDP_REQUESTS of phase 4's requests, FSDP_NEW_TOKENS each, on the
-# tp-train phase's qwen3-14b cut
-FSDP_WORLD, FSDP_REQUESTS, FSDP_NEW_TOKENS = 2, 8, 4
+# tp-train phase's qwen3-14b cut, contiguous then paged: three prefill
+# groups, the 512-token one split over the two ranks, and one decode step
+# (4 new tokens, three steps, until the batch phase took the script past
+# 900 s: each pass here gathers for 3-4 s)
+FSDP_WORLD, FSDP_REQUESTS, FSDP_NEW_TOKENS = 2, 8, 2
 
 
 class SmokeError(RuntimeError):
@@ -851,7 +891,8 @@ def serve_run(lm, page_size, record=False):
 def first_decode_recorded(lm):
     """Inside, the first call of ``lm.decode`` appends to the yielded list
     a record, on the host: the logits of every prefill before it (the
-    first admit window's groups, rows in call order), the step's fed
+    first admit window's groups, rows in call order; "prefills" keeps
+    them call by call), the step's fed
     tokens and lengths, its embedding output, its logits, each MoE
     layer's choice of experts (or None) and layer 0's K/V cache after it
     (the rank's heads or positions; None without attention at pattern
@@ -889,7 +930,7 @@ def first_decode_recorded(lm):
         finally:
             blocks.route = route
             del lm.embed
-        rec = {"prefill": torch.cat(prefills),
+        rec = {"prefill": torch.cat(prefills), "prefills": list(prefills),
                "tokens": tokens.to("cpu", copy=True),
                "lengths": lengths.to("cpu", copy=True), "emb": embs[0],
                "logits": out[0].float().cpu(),
@@ -1842,6 +1883,259 @@ def phase_parallel(single, smi, runs=PARALLEL_RUNS, cuts=TP_CUTS):
     phase("parallel", "done", f"{len(runs)} runs and {len(cuts)} fp32 cuts "
           f"over {W} ranks; phase {wall:.1f} s of spawn and runs; {smi}")
     return total, by_run
+
+
+def batch_jamba_cfg():
+    """(h2): jamba's smoke config in fp32 at capacity factor
+    DP_CAPACITY_FACTOR, where the MoE layers drop assignments."""
+    return dataclasses.replace(path_config("jamba-1.5-large-398b", None, True),
+                               dtype="float32",
+                               capacity_factor=DP_CAPACITY_FACTOR)
+
+
+@contextlib.contextmanager
+def dispatch_drops(into):
+    """Append to ``into`` each serving MoE dispatch's dropped assignments
+    and whether it ran on a rank's rows of a split batch."""
+    from repro_torch.models import moe
+    orig = moe.dispatch
+
+    def dispatch(ids, cfg, data=None):
+        tok, slot, kept = orig(ids, cfg, data)
+        into.append((int((~kept).sum()), data is not None))
+        return tok, slot, kept
+
+    moe.dispatch = dispatch
+    try:
+        yield into
+    finally:
+        moe.dispatch = orig
+
+
+def batch_serve(lm, rt=None, modes=("contiguous", "paged")):
+    """Phase 4's requests through an engine on this rank (``rt``) or alone,
+    in each mode: tokens, launches (set to 0 just before each run, read
+    just after, held to ``expected_launches``), the first decode step
+    (contiguous), prefill ms a group, decode ms a step, the caches' bytes
+    (``launch.counter.storage_bytes``), the pages of the pool, the rows
+    moved and their seconds (``parallel.collectives.exchange``, device-
+    synced), and each MoE dispatch's drops."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch.counter import storage_bytes
+    from repro_torch.models.blocks import DECODE_BLOCK_S
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.engine import Engine, Request
+    out = {}
+    exchange = engine_mod.exchange
+    for mode in modes:
+        ps = DECODE_BLOCK_S if mode == "paged" else None
+        eng = Engine(lm, rt=rt, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                     page_size=ps, device="cuda")
+        pre_s, step_s, move_s, drops = [], [], [], []
+        eng._prefill_group = _timed(eng._prefill_group, pre_s)
+        eng.step = _timed(eng.step, step_s)
+        engine_mod.exchange = _timed(exchange, move_s)
+        try:
+            with (first_decode_recorded(lm) if ps is None
+                  else contextlib.nullcontext([])) as first, \
+                    dispatch_drops(drops):
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                done = eng.run(make_requests(lm.cfg, Request))
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+        finally:
+            engine_mod.exchange = exchange
+        want = expected_launches(lm.cfg, eng, ps is not None)
+        check(counts == want, f"batch {lm.cfg.name} {mode}: launches "
+              f"{counts} != expected {want}")
+        if eng.pager is not None:
+            check(eng.pager.used_pages == 0,
+                  f"batch {lm.cfg.name} paged: pages not freed")
+            eng.pager.check_conservation()
+        out[mode] = {
+            "served": [(r.rid, np.asarray(r.out_tokens).tolist())
+                       for r in done],
+            "counts": counts, "prefill_ms": [1e3 * x for x in pre_s],
+            "decode_ms": [1e3 * x for x in step_s], "drops": drops,
+            "move_s": sum(move_s), "cache_bytes": storage_bytes(eng.caches),
+            "pages": None if eng.pager is None else eng.pager.n_pages,
+            "own": (eng.own.start, eng.own.stop), "moved": eng.moved_rows,
+            "first": first[0] if first else None}
+        # the timing wrappers hold the engine in a cycle: collect it, so
+        # one engine's caches are resident at a time
+        del eng
+        free_device_memory()
+    return out
+
+
+def _batch_rank(rank, mesh):
+    """One rank of the batch phase (``launch.world.spawn_world``'s target
+    at (data BATCH_WORLD)): (h1) and (h2) of the module docstring, with
+    the rank's peak memory (over the weights' draw, then over serving
+    alone) and the one-rank cache bytes its runtime counts
+    (``LM.cache_shapes`` at MAX_BATCH)."""
+    import torch.distributed as dist
+    from repro_torch.bridge import init_params
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models.lm import LM, Runtime
+    from repro_torch.parallel.check import bytes_held
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rt = Runtime(ParallelConfig(), mesh)
+    out = {"backend": dist.get_backend(), "device": str(mesh.device),
+           "coords": mesh.coords}
+    for name, cfg in (("h1", path_config(BATCH_ARCH, None, False)),
+                      ("h2", batch_jamba_cfg())):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lm = LM(cfg, init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0), "cuda", mesh=mesh), device="cuda")
+        torch.cuda.synchronize()
+        out[name + "_draw_peak"] = torch.cuda.max_memory_allocated()
+        out[name + "_weights"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = batch_serve(lm, rt)
+        out[name + "_peak"] = torch.cuda.max_memory_allocated()
+        out[name + "_one_cache"] = bytes_held(lm.cache_shapes(
+            MAX_BATCH, MAX_LEN, rt))
+        del lm
+        free_device_memory()
+    return out
+
+
+def check_batch_rank(r, one, tol, what):
+    """A rank's run against one rank's: tokens and finish order in both
+    modes, the first admit window's prefill logits and first decode step
+    on the rank's rows within ``tol`` (bit-equal at 0), half of one
+    rank's cache bytes and slots; returns the largest logit gap."""
+    i = r["coords"]["data"]
+    for mode in ("contiguous", "paged"):
+        check(r[what][mode]["served"] == one[mode]["served"],
+              f"batch {what} {mode}: rank {r['coords']} served other tokens"
+              " or another finish order than one rank")
+    gap = 0.0
+    for key, (got, want) in first_against_one(
+            r[what]["contiguous"]["first"], one["contiguous"]["first"],
+            i).items():
+        if key in ("tokens", "lengths", "emb"):
+            check(torch.equal(got, want), f"batch {what}: rank "
+                  f"{r['coords']}'s first decode step fed other {key}")
+            continue
+        err = (got.float() - want.float()).abs().max().item()
+        gap = max(gap, err)
+        check(err <= tol, f"batch {what}: rank {r['coords']}'s {key} is "
+              f"{err:.4e} from one rank's rows, over {tol}")
+    return gap
+
+
+def phase_batch(single, smi):
+    """Serving with the batch split over the batch axes: a world of
+    BATCH_WORLD gloo ranks on the card at (data BATCH_WORLD) against one
+    rank: (h1) and (h2) of the module docstring. ``single``: phase 4's
+    records by arch (BATCH_ARCH's first decode step, tokens and phase 5's
+    times). Returns the ranks' launch counts, summed over the ranks and
+    modes."""
+    from repro_torch.bridge import init_params
+    from repro_torch.launch.world import spawn_world
+    from repro_torch.models.blocks import DECODE_BLOCK_S
+    from repro_torch.models.lm import LM
+    check(not torch.backends.cuda.matmul.allow_tf32, "batch: TF32 is on")
+    cfg = path_config(BATCH_ARCH, None, False)
+    phase("batch", "setup", f"a world of {BATCH_WORLD} ranks on the card "
+          f"at (data {BATCH_WORLD}) (launch.world.spawn_world), "
+          f"{MAX_BATCH // BATCH_WORLD} of {MAX_BATCH} slots a rank: (h1) "
+          f"{cfg.name} at published widths and depth ({cfg.n_layers} "
+          f"layers), phase 4's {N_REQ} requests; (h2) jamba smoke, fp32, "
+          f"capacity factor {DP_CAPACITY_FACTOR}")
+    # (h2) on one rank
+    jcfg = batch_jamba_cfg()
+    lm = LM(jcfg, init_params(jcfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda"), device="cuda")
+    h2_one = batch_serve(lm)
+    del lm
+    free_device_memory()
+    one = single[BATCH_ARCH]
+    h1_one = {"contiguous": {"served": one.served, "first": one.first},
+              "paged": {"served": one.served}}
+    t0 = time.perf_counter()
+    ranks = spawn_world(BATCH_WORLD, _batch_rank,
+                        devices=["cuda:0"] * BATCH_WORLD)
+    world_s = time.perf_counter() - t0
+    total = {}
+    for r in ranks:
+        for what in ("h1", "h2"):
+            for mode in ("contiguous", "paged"):
+                for k, v in r[what][mode]["counts"].items():
+                    total[k] = total.get(k, 0) + v
+    # (h1)
+    for r in ranks:
+        gap = check_batch_rank(r, h1_one, BATCH_LOGITS_TOL, "h1")
+        c, pg = r["h1"]["contiguous"], r["h1"]["paged"]
+        lo, hi = c["own"]
+        check(hi - lo == MAX_BATCH // BATCH_WORLD and pg["own"] == c["own"],
+              f"batch h1: rank {r['coords']} holds slots {lo}-{hi - 1}")
+        check(BATCH_WORLD * c["cache_bytes"] == r["h1_one_cache"],
+              f"batch h1: rank {r['coords']} holds {c['cache_bytes']} B of "
+              f"caches, not 1/{BATCH_WORLD} of one rank's "
+              f"{r['h1_one_cache']}")
+        pps = MAX_LEN // DECODE_BLOCK_S
+        check(pg["pages"] == 1 + (hi - lo) * pps,
+              f"batch h1: rank {r['coords']}'s pool holds {pg['pages']} "
+              "pages")
+        check(c["moved"] > 0 and pg["moved"] > 0,
+              "batch h1: no prefill row moved to its slot's rank")
+        phase("batch", "h1", f"rank {r['coords']} ({r['backend']}, "
+              f"{r['device']}): tokens and finish order equal one rank's, "
+              f"contiguous and paged; slots {lo}-{hi - 1}; first window's "
+              f"prefill logits and first decode step on its rows "
+              f"{'bit-equal to' if gap == 0 else f'{gap:.4e} from'} one "
+              f"rank's; {c['moved']} prefill rows moved in; caches "
+              f"{c['cache_bytes']} B (one rank {r['h1_one_cache']} B: "
+              f"{c['cache_bytes'] / r['h1_one_cache']:.4f}), pool "
+              f"{pg['pages']} pages; peak {r['h1_draw_peak'] / 2**30:.2f} "
+              f"GiB over the weights' draw (one rank, phase 4: "
+              f"{one.times['peak_gib']:.2f}), "
+              f"{r['h1_peak'] / 2**30:.2f} GiB serving with "
+              f"{r['h1_weights'] / 2**30:.2f} GiB of weights resident; "
+              f"prefill {_median(c['prefill_ms']):.3f} ms a group (median "
+              f"of {len(c['prefill_ms'])}; one rank "
+              f"{one.times['prefill_ms']:.3f}; rows moved in "
+              f"{c['move_s']:.3f} s of {sum(c['prefill_ms']) / 1e3:.3f} s "
+              f"of prefill), decode "
+              f"{_median(c['decode_ms']):.3f} ms a step contiguous, "
+              f"{_median(pg['decode_ms']):.3f} paged (medians of "
+              f"{len(c['decode_ms'])}; one rank "
+              f"{one.times['decode_ms']:.3f}); launches "
+              f"{c['counts']} contiguous; {smi}")
+    # (h2)
+    for r in ranks:
+        gap = check_batch_rank(r, h2_one, REF_TOL, "h2")
+        phase("batch", "h2", f"rank {r['coords']}: jamba smoke fp32 tokens "
+              f"equal one rank's, logits on its rows within {gap:.3e} "
+              f"(REF_TOL {REF_TOL}); launches contiguous "
+              f"{r['h2']['contiguous']['counts']}, paged "
+              f"{r['h2']['paged']['counts']}")
+    for mode in ("contiguous", "paged"):
+        want = h2_one[mode]["drops"]
+        got = [sum(r["h2"][mode]["drops"][j][0] for r in ranks)
+               if ranks[0]["h2"][mode]["drops"][j][1]
+               else ranks[0]["h2"][mode]["drops"][j][0]
+               for j in range(len(want))]
+        check(len(ranks[0]["h2"][mode]["drops"]) == len(want)
+              and got == [d for d, _ in want] and sum(got) > 0,
+              f"batch h2 {mode}: drops by MoE call {sum(got)} over the "
+              f"ranks, one rank {sum(d for d, _ in want)}")
+        phase("batch", "h2", f"{mode}: {sum(got)} assignments dropped over "
+              f"the ranks in {len(got)} MoE calls, equal call by call to "
+              "one rank's (C and the fill over the whole batch at model 1)")
+    for kern in ("flash_attention", "decode_attention",
+                 "paged_decode_attention", "moe_gmm", "ssd_scan"):
+        check(total.get(kern, 0) > 0, f"batch: {kern} never launched")
+    phase("batch", "done", f"world {world_s:.1f} s; launches over the ranks "
+          f"{total}; {smi}")
+    return total
 
 
 def phase_dsp(smi):
@@ -3302,17 +3596,18 @@ def whole_leaves_equal(grads, split, group):
     return True, len(whole), ""
 
 
-def tpt_resume(rcfg, work, mesh):
-    """(f2) on one rank of the world: ``train_loop(mesh=)`` with a
-    preemption before step 6 (checkpoints every 4), whose replayed steps
-    4 and 5 must repeat their first losses; then the world's loss at step
-    TP_TRAIN_STEPS from the run's last checkpoint."""
+def tpt_resume(rcfg, work, mesh, steps, every, preempt):
+    """(f2) or (g3) on one rank of the world: ``train_loop(mesh=)`` for
+    ``steps`` steps with checkpoints every ``every`` and a preemption
+    before step ``preempt``, whose restart replays the steps from the
+    last checkpoint before it (from the start without one); then the
+    world's loss at step ``steps`` from the run's last checkpoint."""
     from repro_torch.data.synthetic import synthetic_batches
     from repro_torch.train.loop import _start, train_loop
     t0 = time.perf_counter()
     pre = train_loop(rcfg, ckpt_dir=os.path.join(work, "pre"),
-                     num_steps=TP_TRAIN_STEPS, ckpt_every=4,
-                     fail_at={6: True}, mesh=mesh)
+                     num_steps=steps, ckpt_every=every,
+                     fail_at={preempt: True}, mesh=mesh)
     loop_s = time.perf_counter() - t0
     state, start, step_fn = _start(rcfg, os.path.join(work, "pre"),
                                    mesh.device, mesh)
@@ -3382,7 +3677,8 @@ def _tpt_rank(rank, mesh, work):
     out["coll"] = [a + b for a, b in zip(spent["all_reduce"],
                                          spent["all_gather"])]
     free_device_memory()
-    out["f2"] = tpt_resume(tpt_f2_run(), work, mesh)
+    out["f2"] = tpt_resume(tpt_f2_run(), work, mesh, TP_TRAIN_STEPS,
+                           TP_TRAIN_STEPS, TP_PREEMPT)
     free_device_memory()
     # (f3): the dp phase's (e3) run, jamba smoke at capacity factor 0.5
     f3 = dp_e3_run()
@@ -3518,10 +3814,11 @@ def phase_tp_train(smi):
             check(r["f2"]["pre"] == f2["pre"] and r["f2"]["next"]
                   == f2["next"], "tp-train f2: the ranks' losses differ")
         pre = f2["pre"]
-        check(f2["restarts"] == 1 and len(pre) == TP_TRAIN_STEPS + 2,
+        P = TP_PREEMPT
+        check(f2["restarts"] == 1 and len(pre) == TP_TRAIN_STEPS + P,
               f"tp-train f2: {f2['restarts']} restarts, {len(pre)} losses")
-        check(pre[6:8] == pre[4:6], f"tp-train f2: the steps replayed after "
-              f"the preemption give {pre[6:8]}, first {pre[4:6]}")
+        check(pre[P:2 * P] == pre[:P], f"tp-train f2: the steps replayed "
+              f"after the preemption give {pre[P:2 * P]}, first {pre[:P]}")
         f2r = tpt_f2_run()
         state, start, step_fn = _start(f2r, os.path.join(work, "pre"),
                                        "cuda")
@@ -3536,9 +3833,10 @@ def phase_tp_train(smi):
               f"world's checkpoint {one_next!r} vs the world's "
               f"{f2['next']!r}, rel err {next_err:.3e} > {DP_NEXT_RTOL}")
         phase("tp-train", "f2", f"bf16 train_loop(mesh=): {TP_TRAIN_STEPS} "
-              f"steps with checkpoints every 4 and a preemption before step "
-              f"6: {f2['restarts']} restart, steps 4-5 replayed bit for bit "
-              f"({len(pre)} losses); step {start} from its last checkpoint "
+              f"steps with one checkpoint, at the end, and a preemption "
+              f"before step {P}: {f2['restarts']} restart, steps 0-{P - 1} "
+              f"replayed bit for bit ({len(pre)} losses); step {start} "
+              f"from the checkpoint "
               f"on one rank {one_next:.6f} vs the world {f2['next']:.6f} "
               f"(rel err {next_err:.3e}, tol {DP_NEXT_RTOL}); losses "
               + ", ".join(f"{x:.4f}" for x in pre)
@@ -3775,7 +4073,7 @@ def _fsdp_rank(rank, mesh, work):
     out["times"], out["spent"] = step_times(fsdp_g3_run(), mesh,
                                             timed=timed)
     free_device_memory()
-    out["g3"] = tpt_resume(fsdp_g3_run(), work, mesh)
+    out["g3"] = tpt_resume(fsdp_g3_run(), work, mesh, DP_STEPS, 4, 6)
     free_device_memory()
     # (g4)
     g4 = fsdp_g4_run()
@@ -3811,23 +4109,48 @@ def fsdp_g4_run():
         r.parallel, strategy="fsdp_tp"))
 
 
+def own_rows(want, got, index):
+    """The rows of one rank's tensor ``want`` that batch rank ``index``
+    holds, where its ``got`` holds fewer (the batch split over the batch
+    axes: ``index``'s block); ``want`` itself where they hold as many."""
+    per = got.shape[0]
+    return want if per == want.shape[0] else want[index * per:
+                                                 (index + 1) * per]
+
+
+def first_against_one(got, want, index):
+    """{what: (a rank's tensor, one rank's at its rows)} of two
+    ``first_decode_recorded`` records: each prefill call of the first
+    admit window, and the first decode step's fed tokens, lengths,
+    embedding, logits and layer-0 K/V."""
+    pairs = {}
+    check(len(got["prefills"]) == len(want["prefills"]),
+          f"{len(got['prefills'])} prefill calls before the first decode "
+          f"step, one rank {len(want['prefills'])}")
+    for j, (g, w) in enumerate(zip(got["prefills"], want["prefills"])):
+        pairs[f"prefill {j}"] = (g, own_rows(w, g, index))
+    for key in ("tokens", "lengths", "emb", "logits", "k0", "v0"):
+        if want[key] is not None:
+            pairs[key] = (got[key], own_rows(want[key], got[key], index))
+    return pairs
+
+
 def check_fsdp_serve(one, ranks, smi):
     """(g1): every rank's tokens, finish order, prefill logits, first
-    decode step's embedding, logits and layer-0 K/V equal one rank's bit
-    for bit, contiguous and paged."""
+    decode step's embedding, logits and layer-0 K/V on its rows equal one
+    rank's bit for bit, contiguous and paged."""
     for r in ranks:
         for mode in ("contiguous", "paged"):
             check(r["g1"][mode]["served"] == one[mode]["served"],
                   f"fsdp g1 {mode}: rank {r['coords']} served other tokens "
                   "or another finish order than one rank")
-        got, want = r["g1"]["contiguous"]["first"], one["contiguous"]["first"]
-        for key in ("prefill", "tokens", "lengths", "emb", "logits", "k0",
-                    "v0"):
-            if want[key] is None:
-                continue
-            check(torch.equal(got[key], want[key]), f"fsdp g1: rank "
+        pairs = first_against_one(r["g1"]["contiguous"]["first"],
+                                  one["contiguous"]["first"],
+                                  r["coords"]["data"])
+        for key, (got, want) in pairs.items():
+            check(torch.equal(got, want), f"fsdp g1: rank "
                   f"{r['coords']}'s first decode step differs from one "
-                  f"rank's ({key}: {max_err(got[key], want[key], 1e9):.3e})")
+                  f"rank's ({key}: {max_err(got, want, 1e9):.3e})")
     check(one["contiguous"]["served"] == one["paged"]["served"],
           "fsdp g1: one rank's tokens differ contiguous and paged")
 
@@ -3914,7 +4237,7 @@ def phase_fsdp(smi, dp_steps=None):
         phase("fsdp", "g1", "every rank's tokens and finish order equal one "
               "rank's, contiguous and paged; the first window's prefill "
               "logits, the first decode step's embedding, logits and layer "
-              "0's K/V equal one rank's bit for bit")
+              "0's K/V on the rank's rows equal one rank's bit for bit")
         # (g2)
         g2s = [r["g2"] for r in ranks]
         worst = max(g2s, key=lambda f: f["g_ratio"])
@@ -4099,6 +4422,10 @@ def main():
         launches[k] += v
     free_device_memory()
     clock(t0, "parallel")
+    for k, v in phase_batch(served, smi).items():
+        launches[k] += v
+    free_device_memory()
+    clock(t0, "batch")
     for k, v in phase_dsp(smi).items():
         launches[k] += v
     free_device_memory()

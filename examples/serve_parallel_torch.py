@@ -1,6 +1,8 @@
 """Serving across ranks on the port: one model's heads, MLPs, vocab and
 Mamba2 heads split over the ``model`` axis of a mesh (tensor parallelism)
-and its experts split over the same axis (``repro_torch.parallel``).
+and its experts split over the same axis (``repro_torch.parallel``); with
+``--data n`` the engine's slots and each batch's rows split over the
+``data`` axis too (mesh (data n, model world / n)).
 
 Every rank runs the same ``Engine`` on the same requests and returns the
 same tokens; rank 0 prints them. On N cards, NCCL with a card a rank:
@@ -10,7 +12,7 @@ same tokens; rank 0 prints them. On N cards, NCCL with a card a rank:
 On the CPU, N processes over gloo (no torchrun needed), any smoke arch:
 
   PYTHONPATH=src python examples/serve_parallel_torch.py --device cpu \
-      --world 2 --arch qwen3-14b
+      --world 2 --arch qwen3-14b [--data 2]
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ def serve(rank: int, world: int, args, init_method: str) -> list:
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world)
     try:
-        mesh = make_mesh(1, world, device=args.device)
+        mesh = make_mesh(args.data, world // args.data, device=args.device)
         cfg = get_smoke_config(args.arch)
         parallel = ParallelConfig()
         gen = torch.Generator(device=mesh.device).manual_seed(0)
@@ -74,7 +76,9 @@ def serve(rank: int, world: int, args, init_method: str) -> list:
         if rank == 0:
             held, split = describe(cfg, lm, rt)
             print(f"{cfg.name} over {world} ranks ({backend}, {held}):")
-            print(f"  rank 0: {split}")
+            print(f"  rank 0: {split}; slots {eng.own.start}-"
+                  f"{eng.own.stop - 1} of {eng.max_batch}, "
+                  f"{eng.moved_rows} prefill rows moved")
             for rid, toks in served:
                 print(f"  request {rid}: {toks}")
         return served
@@ -94,7 +98,12 @@ def main(argv=None):
                     help="ranks to spawn when not under torchrun")
     ap.add_argument("--arch", default="arctic-480b",
                     help="a smoke config of repro_torch.configs")
+    ap.add_argument("--data", type=int, default=1,
+                    help="ranks on the data axis (the batch's); the rest "
+                    "go on the model axis")
     args = ap.parse_args(argv)
+    if args.data < 1:
+        ap.error("--data must be at least 1")
     if "RANK" in os.environ:                       # under torchrun
         return serve(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
                      args, "env://")

@@ -74,10 +74,10 @@ def decode_input_specs(cfg, shape, mesh=None) -> dict:
 
 def input_specs(cfg, shape, mesh=None) -> dict:
     """The batch of a ``shape.kind`` step as meta tensors: the global
-    batch, which the port's steps take on every rank (a data-parallel
-    train step takes its rows itself, serving keeps the batch whole), or
-    with ``mesh`` this rank's rows of it, as the reference's specs shard
-    them."""
+    batch, which a data-parallel train step takes on every rank (it cuts
+    its rows itself), or with ``mesh`` this rank's rows of it, as the
+    reference's specs shard them and the serving passes take them
+    (``models.lm.Runtime.rows``)."""
     if shape.kind == "train":
         return train_input_specs(cfg, shape, mesh)
     if shape.kind == "prefill":

@@ -9,7 +9,11 @@ tensors of the shapes this rank holds (``bridge.meta_params`` with the
 mesh, the optimizer's moments, ``LM.cache_shapes``,
 ``data.synthetic.input_specs``), so no memory is allocated for any
 full-size config; on a real device they are drawn from a seed, so the
-tests hold the dry run to a real run of the same cell.
+tests hold the dry run to a real run of the same cell. A serving cell
+holds and computes the rank's rows of its batch where the batch divides
+over the batch axes (``Runtime.rows``; ``long_500k``'s one row stays
+whole), its caches too; a train step takes the global batch and cuts its
+rows itself.
 
 The policy (``FSDP_THRESHOLD_BYTES``, ``LONG_OK_FAMILIES``,
 ``default_parallel``, ``cell_applicable``) is the reference's, copied.
@@ -30,6 +34,7 @@ from repro_torch.configs.base import (
     ModelConfig, ParallelConfig, RunConfig, ShapeConfig)
 from repro_torch.data.synthetic import input_specs, synthetic_batches
 from repro_torch.models.lm import LM, Runtime
+from repro_torch.parallel.collectives import gather_rows
 from repro_torch.parallel.sharding import batch_axes
 from repro_torch.train.train_step import build_train_step
 
@@ -87,20 +92,25 @@ class Cell:
     step: Callable[[], Any]   # one step on ``args``; returns its outputs
 
 
-def _batch(cfg, shape, rcfg, device, seed: int):
-    """The step's global batch: meta specs, or a seeded synthetic batch
-    (decode: each row's first token, lengths inside the cache)."""
+def _batch(cfg, shape, rcfg, device, seed: int, mesh, rows):
+    """The step's batch: meta specs, or a seeded synthetic batch (decode:
+    each row's first token, lengths inside the cache). A train step takes
+    the global batch (its step cuts its rows); a serving step this rank's
+    ``rows`` (``Runtime.rows``; None: the whole batch)."""
+    serving = shape.kind != "train"
     if device.type == "meta":
-        return input_specs(cfg, shape)
+        return input_specs(cfg, shape, mesh if serving else None)
     full = synthetic_batches(rcfg, device)(seed)
-    if shape.kind == "train":
+    if not serving:
         return full
+    mine = rows[0] if rows else slice(None)
     if shape.kind == "prefill":
-        return {k: v for k, v in full.items() if k in ("tokens", "patches")}
+        return {k: v[mine] for k, v in full.items()
+                if k in ("tokens", "patches")}
     B, S = shape.global_batch, shape.seq_len
-    return {"tokens": full["tokens"][:, :1],
+    return {"tokens": full["tokens"][mine, :1],
             "lengths": ((torch.arange(B) * 7 + S // 2) % S).to(
-                device, torch.int32)}
+                device, torch.int32)[mine]}
 
 
 def build_cell(arch: str, shape_name: str, mesh=None,
@@ -127,7 +137,8 @@ def build_cell(arch: str, shape_name: str, mesh=None,
     lm = LM(cfg, params, device=device)
     rt = Runtime(parallel, mesh)
     rcfg = RunConfig(model=cfg, shape=shape, parallel=parallel, seed=seed)
-    batch = _batch(cfg, shape, rcfg, device, seed)
+    rows = rt.rows(shape.global_batch)
+    batch = _batch(cfg, shape, rcfg, device, seed, mesh, rows)
     args = {"params": params, "batch": batch}
 
     if shape.kind == "train":
@@ -139,19 +150,21 @@ def build_cell(arch: str, shape_name: str, mesh=None,
             return step_fn(state, batch)
     elif shape.kind == "prefill":
         def step():
-            logits, caches = lm.prefill(batch, rt)
+            logits, caches = lm.prefill(batch, rt, rows=rows)
             return torch.argmax(logits, dim=-1), caches
     else:  # decode: one token against a cache of capacity seq_len
-        B, S = shape.global_batch, shape.seq_len
+        S = shape.seq_len
         window = rt.seq_window(cfg, S)
-        caches = lm.init_cache(B, S if window is None
+        caches = lm.init_cache(batch["lengths"].shape[0], S if window is None
                                else window[1] - window[0], rt)
         args["caches"] = caches
 
         def step():
             logits, new = lm.decode(batch["tokens"], batch["lengths"],
-                                    caches, rt=rt)
-            return torch.argmax(logits, dim=-1), new
+                                    caches, rt=rt, rows=rows)
+            # every rank's greedy ids, as the engine gathers them
+            return gather_rows(torch.argmax(logits, dim=-1),
+                               rows[1] if rows else None), new
 
     return Cell(arch=arch, shape=shape, cfg=cfg, parallel=parallel,
                 args=args, step=step)

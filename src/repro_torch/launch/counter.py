@@ -84,11 +84,13 @@ def _flat(xs):
 class StepCounter(TorchDispatchMode):
     """``with StepCounter() as c:``: ``c.now`` the bytes of the storages
     created inside the block that are still alive, ``c.peak`` their most
-    at any point, ``c.flops`` the FLOPs of torch's operations."""
+    at any point, ``c.flops`` the FLOPs of torch's operations and
+    ``c.by_op`` the same by operation ("mm", "bmm", ...)."""
 
     def __init__(self):
         super().__init__()
         self.now = self.peak = self.flops = 0
+        self.by_op: dict[str, int] = {}
         self._live: dict[int, int] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -104,7 +106,10 @@ class StepCounter(TorchDispatchMode):
                     return out
         out = func(*args, **kwargs)
         if packet in flop_registry:
-            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+            n = flop_registry[packet](*args, **kwargs, out_val=out)
+            self.flops += n
+            name = packet.__name__
+            self.by_op[name] = self.by_op.get(name, 0) + n
         inputs = {t.untyped_storage()._cdata
                   for t in _flat((*args, *kwargs.values()))}
         outs = out if isinstance(out, (list, tuple)) else (out,)

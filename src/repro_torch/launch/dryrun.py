@@ -135,6 +135,7 @@ def record(step, args: dict, transport: str = "nccl"):
                    "peak_bytes": total + live.peak, "held": held},
         "cost": {"flops": live.flops + k_flops,
                  "flops_torch": live.flops,
+                 "flops_by_op": live.by_op,
                  "flops_kernels": k_flops,
                  "kernel_bytes": sum(k["bytes"]
                                      for k in kernels.by_kernel.values())},

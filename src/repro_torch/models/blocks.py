@@ -22,6 +22,10 @@ units and of Mamba2's heads, and each row-parallel product (``wo``, an
 MLP's ``w_out``, Mamba2's ``w_out``) is summed over ``model``. MoE
 layers run expert-parallel (``moe_apply``); the dense residual's or the
 shared experts' partial joins the experts' before their one reduction.
+Every layer, the ring, the sequence-sharded decode and the MoE layer
+included, takes and returns the rank's rows of the batch
+(``models.lm.Runtime.rows``); only the MoE layer's capacity reads the
+group that holds the other rows (``data``).
 
 Training runs ``block_train``: the same blocks over the whole sequence
 with no cache, through plain tensor ops only (``chunked_attention``,
@@ -131,7 +135,7 @@ def _decode_attention(q, k, v, k_cache, v_cache, lengths, page_table, full,
 
 
 def block_apply(p, cfg, x, positions, i: int, *, rt=None, cache=None,
-                lengths=None, page_table=None, full=None,
+                lengths=None, page_table=None, full=None, data=None,
                 block_s: int = DECODE_BLOCK_S):
     """One pre-norm block at pattern position ``i``: attention or Mamba2,
     then the MoE layer (with the dense residual or shared MLP where the
@@ -141,7 +145,9 @@ def block_apply(p, cfg, x, positions, i: int, *, rt=None, cache=None,
     for Mamba2; ``lengths``, ``page_table``, ``full`` and ``block_s``
     concern attention only. ``rt``: the runtime (``attn_block``; its mesh
     also runs the MoE layer expert-parallel, and ``rt.tensor(cfg)`` splits
-    the Mamba2 heads and the MLPs).
+    the Mamba2 heads and the MLPs). ``data``: the group over the batch
+    axes when x holds this rank's rows of a split batch, else None
+    (``moe_apply``).
     """
     tp = rt.tensor(cfg) if rt is not None else WHOLE
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
@@ -154,7 +160,8 @@ def block_apply(p, cfg, x, positions, i: int, *, rt=None, cache=None,
         out, new_cache = mamba_apply(p["mamba"], cfg, h, cache=cache, tp=tp)
     mesh = rt.mesh if rt is not None else None
     x, _ = _ffn(p, cfg, x + out, i,
-                lambda *a, **kw: moe_apply(*a, mesh=mesh, **kw), tp)
+                lambda *a, **kw: moe_apply(*a, mesh=mesh, data=data, **kw),
+                tp)
     return x, new_cache
 
 

@@ -15,11 +15,12 @@ Serving (``prefill``, ``decode``) runs under ``torch.no_grad`` through the
 kernels, on one rank or, with a ``Runtime`` whose mesh spans several, as
 one rank of that mesh (``models.blocks``): the rank's params, caches and
 compute then hold its share of the heads, KV heads, MLP units, vocab rows
-and Mamba2 heads (``Runtime.tensor``). Training (``loss``) runs the
-blocks' plain training route under
-autograd, each pattern repeat under ``torch.utils.checkpoint`` unless
-``remat == "none"``: the counterpart of the reference's ``jax.checkpoint``
-with ``nothing_saveable`` around its scan body; with a ``Runtime`` it
+and Mamba2 heads (``Runtime.tensor``), and of the batch's rows where the
+batch divides over the batch axes (``Runtime.rows``). Training
+(``loss``) runs the blocks' plain training route under autograd, each
+pattern repeat under ``torch.utils.checkpoint`` unless ``remat ==
+"none"``: the counterpart of the reference's ``jax.checkpoint`` with
+``nothing_saveable`` around its scan body; with a ``Runtime`` it
 trains as one rank of its mesh under the same split.
 
 Under FSDP storage (``Runtime.fsdp``) the params are the rank's stored
@@ -27,7 +28,7 @@ slices: each pass gathers a layer's leaves back to the ``tp`` layout
 just before the layer runs (inside the checkpointed repeat in training,
 so the backward gathers again), as the reference's ``_maybe_gather``
 does, and the ``head`` table where it is read; training gathers the
-``embed`` table too, and serving gathers the looked-up columns instead
+``embed`` table too, and serving looks up the rank's columns instead
 (``embed``'s ``shared_rows``).
 """
 from __future__ import annotations
@@ -45,7 +46,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.models.blocks import DECODE_BLOCK_S, block_apply, block_train
 from repro_torch.models.layers import rmsnorm
-from repro_torch.parallel.collectives import all_gather, all_reduce
+from repro_torch.parallel.collectives import (
+    all_gather, all_reduce, all_to_all, batch_rows)
 from repro_torch.parallel.fsdp import BatchCuts, fsdp_plan
 from repro_torch.parallel.sharding import AXIS_MODEL
 from repro_torch.parallel.tensor import (
@@ -136,16 +138,53 @@ class Runtime:
     KV heads, Mamba2 heads and vocab rows, ``parallel.tensor``), and of the
     experts (``models.moe``). That is what the reference's ``padded_heads``
     and ``shard_heads`` ask of GSPMD; the port splits only whole heads, so
-    it pads none. The residual stream stays whole on every rank (the
-    reference's ``shard_activations`` pins its batch to the data axes
-    only for GSPMD's sake), and every rank computes under the "tp" rules.
-    Under ``strategy="fsdp_tp"`` the params are stored cut over the batch
-    axes as well (``fsdp``), and ``LM`` gathers each layer back to the
-    "tp" layout while it runs: the reference's ``_maybe_gather`` over its
-    ``block_axes``.
+    it pads none. Every rank computes under the "tp" rules.
+
+    The batch's rows split over the batch axes (``pod``, ``data``) where
+    the reference's specs shard them (``shard_activations``, the cache's
+    ``P(None, baxes, ...)``, the MoE ``shard_map``'s ``bspec``): when the
+    batch divides over all of them, rank i of the batch axes holds and
+    computes rows [i B / n, (i + 1) B / n) of every serving pass, its
+    activations and its caches (``rows``); otherwise the batch stays whole
+    on every rank, as the reference replicates it. A batch that divides
+    over ``data`` but not over (``pod``, ``data``) stays whole: the
+    reference's data-only fallback for it (``_guard_batch_axes``) places
+    its inputs and nothing else, and its MoE layer replicates the batch
+    (``moe.py``'s ``bspec``). The residual stream of a rank's rows stays
+    whole over ``model``. Under ``strategy="fsdp_tp"`` the params are
+    stored cut over the batch axes as well (``fsdp``), and ``LM`` gathers
+    each layer back to the "tp" layout while it runs: the reference's
+    ``_maybe_gather`` over its ``block_axes``.
     """
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     mesh: Any = None
+
+    def rows(self, B: int):
+        """(rows, group) of a serving batch of B rows: this rank's rows
+        and the group over the batch axes that holds the others, in rank
+        order (``parallel.collectives.batch_rows``); None when every rank
+        holds the batch whole."""
+        return batch_rows(self.mesh, B) if self.mesh is not None else None
+
+    def row_group(self, B: int, rows=None):
+        """The group over the batch axes that holds the other rows of a
+        serving pass over B rows, or None when the pass holds the whole
+        batch. ``rows``: what ``rows`` returned for the batch these B rows
+        were cut from, or None for a whole batch. A whole batch that
+        divides over the batch axes is refused, as are rows that are not
+        the pair's: the reference shards such a batch, so a pass over it
+        whole would count the MoE capacity over other rows."""
+        if rows is None:
+            if self.rows(B) is not None:
+                raise ValueError(
+                    f"a batch of {B} rows divides over the batch axes: pass "
+                    f"this rank's rows and Runtime.rows({B})'s pair")
+            return None
+        mine, group = rows
+        if B != mine.stop - mine.start:
+            raise ValueError(f"{B} rows, but the pair holds rows "
+                             f"[{mine.start}, {mine.stop})")
+        return group
 
     def fsdp(self, cfg) -> BatchCuts | None:
         """The cuts over the batch axes that ``cfg``'s params are stored
@@ -226,7 +265,7 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------ embed
     def embed(self, batch, rt: Runtime | None = None, *,
-              shared_rows: bool = False):
+              shared_rows: bool = False, data=None):
         """batch: tokens (B, S[, ncb]) int; optional patches (B, Np, d).
 
         Under ``rt``'s vocab split each rank holds rows [lo, hi) of every
@@ -237,11 +276,16 @@ class LM(nn.Module):
 
         Under FSDP storage the table's ``d`` columns are cut over batch
         axes. Training gathers the table. With ``shared_rows`` (the
-        serving passes, where every rank embeds the same tokens, under
-        ``no_grad``) each rank looks up its own columns and the columns
-        are gathered: every output column is its table column's entries
-        (summed over the codebooks in order), so this is the whole
-        table's lookup bit for bit, and the table never crosses."""
+        serving passes, under ``no_grad``) each rank looks up its own
+        columns and the table never crosses: where every rank embeds the
+        same tokens (``data`` None) the columns are gathered; where each
+        holds its own rows (``data``, the group over the batch axes of
+        ``Runtime.rows``) the token ids of the rows of the ranks that cut
+        the table are gathered, each rank looks up its columns of all of
+        them, and an ``all_to_all`` hands each rank its rows' columns.
+        Every output column is its table column's entries (summed over
+        the codebooks in order), so either is the whole table's lookup
+        bit for bit."""
         cfg = self.cfg
         fsdp = rt.fsdp(cfg) if rt is not None else None
         by_column = (shared_rows and fsdp is not None
@@ -249,6 +293,10 @@ class LM(nn.Module):
         emb = (self.params["embed"] if by_column
                else self._table("embed", rt))          # (ncb, Vp, d[/n])
         tokens = batch["tokens"].to(self.device).long()
+        own = tokens.shape[0]
+        if by_column and data is not None:
+            # the cut's ranks hold distinct rows: its axes are batch axes
+            tokens = all_gather(tokens, 0, fsdp.group("embed"))
         tp = rt.tensor(cfg) if rt is not None else WHOLE
         ncb = cfg.n_codebooks
         per_cb = tokens[..., None] if ncb <= 1 else tokens
@@ -276,7 +324,13 @@ class LM(nn.Module):
                 x = x + parts[c]
         else:
             x = parts[0]
-        if by_column:
+        if by_column and data is not None:
+            # (n ranks' rows, S, d / n) -> this rank's rows from each rank,
+            # its columns in rank order -> (rows, S, d)
+            x = all_to_all(x, fsdp.group("embed"))
+            n = x.shape[0] // own
+            x = x.reshape(n, own, *x.shape[1:]).movedim(0, -2).flatten(-2)
+        elif by_column:
             x = all_gather(x, -1, fsdp.group("embed"))
         if cfg.vision_stub and "patches" in batch:
             patches = batch["patches"].to(self.device, x.dtype)
@@ -420,12 +474,21 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- serve
     @torch.no_grad()
-    def prefill(self, batch, rt: Runtime | None = None):
+    def prefill(self, batch, rt: Runtime | None = None, *, rows=None):
         """Full-sequence forward; returns (last_logits (B, [ncb,] Vp),
         caches {"pos{i}": ...} in the module's layouts with B rows and, for
         attention, S positions), on every rank of ``rt``'s mesh: its caches
-        hold the rank's KV and Mamba2 heads (``Runtime.tensor``)."""
-        x = self.embed(batch, rt, shared_rows=True)
+        hold the rank's KV and Mamba2 heads (``Runtime.tensor``).
+
+        ``rows``: ``rt.rows``'s pair for the batch when ``batch`` holds
+        this rank's rows of it (B is then the rank's rows), or None when
+        it is the whole batch (``Runtime.row_group``). The pair's group
+        reaches the MoE layers, where their capacity counts the whole
+        batch (``models.moe.moe_apply``), and the FSDP embedding
+        (``embed``)."""
+        data = (rt if rt is not None else Runtime()).row_group(
+            batch["tokens"].shape[0], rows)
+        x = self.embed(batch, rt, shared_rows=True, data=data)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
         fsdp = rt.fsdp(self.cfg) if rt is not None else None
@@ -433,7 +496,8 @@ class LM(nn.Module):
         for layer in self._layers:
             for i, p in enumerate(layer):
                 p = self._gathered(p, f"blocks/pos{i}", fsdp, 1)
-                x, cache = block_apply(p, self.cfg, x, positions, i, rt=rt)
+                x, cache = block_apply(p, self.cfg, x, positions, i, rt=rt,
+                                       data=data)
                 per_pos[i].append(cache)
         x = rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps)
         logits = self.logits(x[:, -1:], rt)
@@ -442,7 +506,7 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def decode(self, tokens, lengths, caches, page_table=None, *,
-               rt: Runtime | None = None, full=None,
+               rt: Runtime | None = None, full=None, rows=None,
                block_s: int = DECODE_BLOCK_S):
         """tokens: (B, 1[, ncb]); lengths: (B,) int32 current cache fill on
         the device; page_table: (B, pages_per_row) int32 for paged caches.
@@ -453,12 +517,15 @@ class LM(nn.Module):
         contiguous attention cache is this rank's slice of the positions
         (``Runtime.seq_window``). A page pool is never sliced: the
         ``Engine`` refuses paged KV under "seq", and this pass trusts its
-        callers to have done so.
+        callers to have done so. ``rows``: as in ``prefill``; every
+        per-row argument and ``caches`` then hold this rank's rows.
 
         Writes each row's new K/V, conv tails and SSM state into ``caches``
         in place and returns (logits (B, [ncb,] Vp), caches).
         """
-        x = self.embed({"tokens": tokens}, rt, shared_rows=True)
+        data = (rt if rt is not None else Runtime()).row_group(
+            tokens.shape[0], rows)
+        x = self.embed({"tokens": tokens}, rt, shared_rows=True, data=data)
         positions = lengths.long()[:, None]
         fsdp = rt.fsdp(self.cfg) if rt is not None else None
         for r, layer in enumerate(self._layers):
@@ -468,7 +535,7 @@ class LM(nn.Module):
                 x, _ = block_apply(p, self.cfg, x, positions, i, rt=rt,
                                    cache=cache, lengths=lengths,
                                    page_table=page_table, full=full,
-                                   block_s=block_s)
+                                   data=data, block_s=block_s)
         x = rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps)
         return self.logits(x, rt)[:, 0], caches
 

@@ -9,10 +9,16 @@ every expert is local. Under a mesh whose ``model`` axis divides the
 experts, each rank holds the E / n experts that ``resolve_spec`` gives it
 (``"experts": "model"``), takes its range of the same dispatch, and the
 ranks' partial outputs add up in one all-reduce over ``model``: the
-reference's expert parallelism with tokens replicated and a ``psum``
-combine. When the batch divides over the batch axes, each rank
-dispatches only its rows, and C counts them, as the reference's
-per-shard capacity does; the rows then all-gather.
+reference's expert parallelism with tokens replicated over ``model`` and
+a ``psum`` combine. The rows are the rank's (``models.lm.Runtime.rows``):
+under that split C counts them, as the reference's ``shard_map`` over
+the batch axes makes C per shard. Where the reference takes no
+``shard_map`` (one rank on ``model``, or E not dividing over it) its
+capacity and fill count the whole batch, and so does the port's over a
+split batch: the per-expert counts all-gather over the batch axes and
+each rank's slots start after the lower ranks' (``_fill``), as training
+does; a rank's kept rows then sit at the front of each expert's table,
+so the kernel's counts still describe a prefix.
 
 Training runs ``moe_train``: the same routing, capacity and drops, with
 the three expert products as plain batched products (the kernel is
@@ -40,7 +46,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.parallel.collectives import all_gather, all_reduce, batch_rows
+from repro_torch.parallel.collectives import all_gather, all_reduce
 from repro_torch.parallel.sharding import AXIS_MODEL, mesh_axis_size
 from repro_torch.parallel.tensor import WHOLE
 
@@ -92,14 +98,15 @@ def capacity(tokens: int, cfg) -> int:
                             * cfg.capacity_factor))
 
 
-def dispatch(ids, cfg):
+def dispatch(ids, cfg, data=None):
     """Capacity tables of a call: ids (B, S, K) -> (tok (E, C) int64,
     slot (T*K,) int64, kept (T*K,) bool).
 
-    ``slot`` is each assignment's position in its expert, counted in
-    token-major, k-minor order; an assignment is kept when its slot is
+    ``slot`` is each assignment's position in its expert among this
+    call's, counted in token-major, k-minor order; an assignment is kept
+    when its slot in the whole batch (``slots``, ``data`` as there) is
     below C. ``tok[e, c]`` is the token in slot c of expert e, or T for an
-    empty slot.
+    empty slot: a rank's kept assignments fill a prefix of each row.
 
     Every shape here follows from the call's shapes alone: a dropped
     assignment writes into a spare slot past the table, which is cut
@@ -109,7 +116,8 @@ def dispatch(ids, cfg):
     """
     T = ids.shape[0] * ids.shape[1]
     K, E = cfg.top_k, cfg.n_experts
-    slot, kept, C = slots(ids, cfg)
+    slot, below, C = _fill(ids, cfg, data)
+    kept = slot + below < C
     tok = torch.full((E * C + 1,), T, dtype=torch.int64, device=ids.device)
     tok[_kept_at(ids.reshape(T * K) * C + slot, kept, E * C)] = (
         torch.arange(T * K, device=ids.device) // K)
@@ -137,46 +145,48 @@ def _experts(p, cfg, xe, gate, product):
     return (ye.float() * gate).to(xe.dtype)
 
 
-def moe_apply(p, cfg, x, ids, wts, mesh=None, partial=None):
+def moe_apply(p, cfg, x, ids, wts, mesh=None, partial=None, data=None):
     """x: (B, S, d); ids, wts: (B, S, K) from ``route``. Returns (B, S, d)
     in x's dtype: the gated sum of each token's kept experts.
 
     With ``mesh`` (``launch.mesh.Mesh``) whose ``model`` axis of n ranks
     divides E, ``p``'s expert weights are this rank's E / n experts (as
     ``bridge`` shards them) and the result is the all-reduce over
-    ``model`` of every rank's share; otherwise every expert is local.
-    ``partial`` (B, S, d): this rank's row-parallel partial of the dense
-    residual or shared MLP (``blocks._ffn``), added to the rank's share
-    before that one reduction, or summed over ``model`` on its own and
-    added when every expert is local."""
+    ``model`` of every rank's share, C counting the call's rows (a shard's
+    when the batch is split); otherwise every expert is local, and C and
+    the fill count the whole batch: with ``data`` (the group over the
+    batch axes holding the batch's other rows, ``models.lm.Runtime.rows``)
+    over every rank's rows. ``partial`` (B, S, d): this rank's
+    row-parallel partial of the dense residual or shared MLP
+    (``blocks._ffn``), added to the rank's share before that one
+    reduction, or summed over ``model`` on its own and added when every
+    expert is local."""
     E = cfg.n_experts
     n = mesh_axis_size(mesh, AXIS_MODEL) if mesh is not None else 1
     if n == 1 or E % n:
-        y = _moe_local(p, cfg, x, ids, wts, 0, E)
+        y = _moe_local(p, cfg, x, ids, wts, 0, E, data)
         if partial is not None:
             y = y + all_reduce(partial, mesh.group(AXIS_MODEL))
         return y
     n_local = E // n
-    rows = batch_rows(mesh, x.shape[0])
-    b = rows[0] if rows else slice(None)
-    y = _moe_local(p, cfg, x[b], ids[b], wts[b],
-                   mesh.coords[AXIS_MODEL] * n_local, n_local)
+    y = _moe_local(p, cfg, x, ids, wts, mesh.coords[AXIS_MODEL] * n_local,
+                   n_local)
     if partial is not None:
-        y = y + partial[b]
-    y = all_reduce(y, mesh.group(AXIS_MODEL))
-    return all_gather(y, 0, rows[1]) if rows else y
+        y = y + partial
+    return all_reduce(y, mesh.group(AXIS_MODEL))
 
 
-def _moe_local(p, cfg, x, ids, wts, lo: int, n_local: int):
+def _moe_local(p, cfg, x, ids, wts, lo: int, n_local: int, data=None):
     """The experts [lo, lo + n_local) of the call's dispatch, whose
     weights ``p`` holds: their gated outputs added into each token, in x's
-    dtype. C counts this call's B * S rows."""
+    dtype. C counts this call's B * S rows, or with ``data`` every rank's
+    (``dispatch``)."""
     B, S, d = x.shape
     T, K, E = B * S, cfg.top_k, cfg.n_experts
     if p["w_in"].shape[0] != n_local:
         raise ValueError(f"moe: {n_local} local experts, but the weights "
                          f"hold {p['w_in'].shape[0]}")
-    tok, slot, kept = dispatch(ids, cfg)
+    tok, slot, kept = dispatch(ids, cfg, data)
     C = tok.shape[1]
     idf = ids.reshape(T * K)
     flat = idf * C + slot
@@ -212,6 +222,24 @@ def _moe_local(p, cfg, x, ids, wts, lo: int, n_local: int):
     return y.reshape(B, S, d)
 
 
+def _fill(ids, cfg, data=None):
+    """(slot (T*K,) int64, below, C): each assignment's position among
+    this call's assignments of its expert in token-major, k-minor order;
+    the count of the same expert among the lower ranks' assignments under
+    ``data`` (an exclusive scan over one all-gather of (E,) counts), else
+    0; and C, which counts the rows of every rank of ``data``."""
+    T = ids.shape[0] * ids.shape[1]
+    E = cfg.n_experts
+    idf = ids.reshape(T * cfg.top_k)
+    onehot = F.one_hot(idf, E)                              # (T*K, E)
+    slot = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(dim=1)
+    if data is None:
+        return slot, 0, capacity(T, cfg)
+    every = all_gather(onehot.sum(dim=0)[None], 0, data)   # (n, E)
+    below = every[:dist.get_rank(data)].sum(dim=0)
+    return slot, below[idf], capacity(T * dist.get_world_size(data), cfg)
+
+
 def slots(ids, cfg, data=None):
     """(slot (T*K,) int64, kept (T*K,) bool, C) of the training route:
     each assignment's position in its expert in token-major, k-minor
@@ -220,21 +248,11 @@ def slots(ids, cfg, data=None):
     Under ``data`` (the group of the ranks that hold the batch's other
     rows, each a contiguous block in group-rank order) C counts the
     global ``T``, and each slot adds the count of the same expert among
-    the lower ranks' assignments (an exclusive scan over one all-gather
-    of (E,) counts): the reference's global fill order, drops included.
+    the lower ranks' assignments (``_fill``): the reference's global fill
+    order, drops included.
     """
-    T = ids.shape[0] * ids.shape[1]
-    E = cfg.n_experts
-    idf = ids.reshape(T * cfg.top_k)
-    onehot = F.one_hot(idf, E)                              # (T*K, E)
-    slot = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(dim=1)
-    if data is None:
-        C = capacity(T, cfg)
-    else:
-        C = capacity(T * dist.get_world_size(data), cfg)
-        every = all_gather(onehot.sum(dim=0)[None], 0, data)   # (n, E)
-        below = every[:dist.get_rank(data)].sum(dim=0)
-        slot = slot + below[idf]
+    slot, below, C = _fill(ids, cfg, data)
+    slot = slot + below
     return slot, slot < C, C
 
 

@@ -12,18 +12,26 @@ holds, and passes that block on around the ring, so the unrepeated GQA
 K/V (not the H x hd activations) go on the wire. Online-softmax
 accumulators merge the blocks exactly, as in the reference.
 
-The port keeps activations replicated on every rank, where the
-reference's ``shard_map`` leaves them sharded for GSPMD: these functions
-take and return whole tensors. A rank computes its share, as the
-reference's ``in_specs`` give it (its sequence block, and its rows when
-the batch divides over the batch axes, ``batch_axes``), and all-gathers
-the result. The per-rank partials are plain PyTorch, as the reference
-computes them with ``einsum`` outside any Pallas kernel; the ring's
-fallback when S does not divide runs the flash kernel, as the port's
-prefill does.
+Both take and return the rank's rows of the batch. A serving pass
+holds only its rows wherever the reference's specs shard the batch over
+the batch axes (``batch_rows``: the batch divides over all of them), and
+the whole batch on every rank otherwise, as the reference replicates it;
+the caller cuts the rows (``models.lm.Runtime.rows``) and, where every
+rank needs every row's result (the engine's greedy ids), gathers them
+(``gather_rows``). A rank's sequence block is cut here. The per-rank
+partials are plain PyTorch, as the reference computes them with
+``einsum`` outside any Pallas kernel; the ring's fallback when S does
+not divide runs the flash kernel, as the port's prefill does.
 
 Both run over the mesh's ``model`` axis, as every caller in the
 reference passes it, and the ring is causal, as prefill is.
+
+Rows move between batch ranks in three ways: ``gather_rows`` (an
+all-gather in rank order), ``all_to_all`` (each rank's chunk of a tensor
+to the rank of its index: the FSDP embedding's columns of each rank's
+rows, ``models.lm.LM.embed``) and ``exchange`` (point to point: the
+cache rows of a prefill that another rank's slot holds,
+``serve.engine``).
 
 Training under the ``model`` axis differentiates through the splits
 with three ``torch.autograd.Function``s, the transposes that GSPMD
@@ -45,7 +53,8 @@ place on the device. Gloo's all_reduce would take a CUDA tensor, but it
 too copies it to host memory and back, so the reductions stage through
 the same copy as the rest and the transport has one rule. That is how
 the ranks of a one-card world (NCCL refuses two ranks on one card)
-exchange data; the compute stays on the card.
+exchange data; the compute stays on the card. Point-to-point moves
+stage the same way.
 
 Under the dry run (``launch.dryrun``) the process group is ``"fake"``
 and the tensors are meta: a collective moves nothing, and a fake group
@@ -77,10 +86,10 @@ _fake = ["nccl"]       # the backend a "fake" process group stands for
 def observed(fn):
     """Within the block, call ``fn(kind, result, group)`` at every
     collective that goes on the wire, as it is made: ``kind`` one of
-    "all-reduce", "all-gather", "reduce-scatter", "collective-permute"
-    (the reference's HLO names), ``result`` the tensor it delivers to
-    this rank (the gathered one, the reduced one, this rank's slice, the
-    received one)."""
+    "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+    "collective-permute" (the reference's HLO names), ``result`` the
+    tensor it delivers to this rank (the gathered one, the reduced one,
+    this rank's slice, the received one)."""
     _observers.append(fn)
     try:
         yield fn
@@ -158,6 +167,55 @@ def all_gather(t, dim: int, group, device=None):
             out.narrow(dim, i * w.shape[dim], w.shape[dim]).copy_(part)
     _seen("all-gather", out, group)
     return out
+
+
+def all_to_all(t, group):
+    """Chunk j of ``t`` along dim 0 (n equal chunks) to group rank j; this
+    rank's chunks from every rank, concatenated along dim 0 in group-rank
+    order, on ``t``'s device."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t
+    if t.shape[0] % n:
+        raise ValueError(f"all_to_all: {t.shape[0]} rows over {n} ranks")
+    w = _wire(t, group)
+    out = torch.empty_like(w)
+    if not w.is_meta:          # a fake group moves nothing
+        dist.all_to_all_single(out, w, group=group)
+    _seen("all-to-all", out, group)
+    return out.to(t.device)
+
+
+def exchange(sends, recvs, group):
+    """Point-to-point moves over ``group`` in one ``batch_isend_irecv``:
+    ``sends`` (group rank, tensor) pairs go out, and ``recvs`` (group rank,
+    tensor shaped like the one it sends) say what to take in. Two ranks
+    post their moves between them in the same order, which is the order
+    the messages match in. Returns the received tensors, in ``recvs``'
+    order, on their templates' devices."""
+    out = [torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+           if like.is_cuda and gloo_transport(group) else torch.empty_like(
+               like, memory_format=torch.contiguous_format)
+           for _, like in recvs]
+    ops = ([dist.P2POp(dist.isend, _wire(t, group),
+                       dist.get_global_rank(group, dst), group)
+            for dst, t in sends]
+           + [dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, src),
+                         group)
+              for (src, _), buf in zip(recvs, out)])
+    if ops and not any(op.tensor.is_meta for op in ops):
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for buf in out:
+        _seen("collective-permute", buf, group)
+    return [buf.to(like.device) for buf, (_, like) in zip(out, recvs)]
+
+
+def gather_rows(t, data):
+    """The rows of every rank of ``data`` (the group over the batch axes
+    that ``batch_rows`` gives, or None when ``t`` holds the whole batch),
+    concatenated along dim 0 in rank order: the whole batch's."""
+    return t if data is None else all_gather(t, 0, data)
 
 
 def reduce_scatter(t, dim: int, group):
@@ -365,22 +423,19 @@ def _ring_body(q, k, v, mesh):
 
 def ring_attention(q, k, v, mesh):
     """Sequence-parallel causal attention. q: (B, S, H, hd); k/v: (B, S,
-    KVH, hd) unrepeated, whole on every rank. Returns (B, S, H, hd),
-    whole. S shards over the ``model`` axis; without a mesh, with one rank
-    on that axis or when S does not divide, every rank attends over the
-    whole sequence."""
-    B, S = q.shape[:2]
+    KVH, hd) unrepeated, the rank's rows with the whole sequence. Returns
+    (B, S, H, hd), whole on every rank of ``model``. S shards over the
+    ``model`` axis; without a mesh, with one rank on that axis or when S
+    does not divide, every rank attends over the whole sequence."""
+    S = q.shape[1]
     n = mesh_axis_size(mesh, AXIS_MODEL) if mesh is not None else 1
     if n == 1 or S % n:
         return prefill_attention(q, k, v)
     Sl = S // n
     i = mesh.coords[AXIS_MODEL]
-    rows = batch_rows(mesh, B)
-    b = rows[0] if rows else slice(None)
     seq = slice(i * Sl, (i + 1) * Sl)
-    out = _ring_body(q[b, seq], k[b, seq], v[b, seq], mesh)
-    out = all_gather(out, 1, mesh.group(AXIS_MODEL))
-    return all_gather(out, 0, rows[1]) if rows else out
+    out = _ring_body(q[:, seq], k[:, seq], v[:, seq], mesh)
+    return all_gather(out, 1, mesh.group(AXIS_MODEL))
 
 
 # -------------------------------------------------------- seq-sharded decode
@@ -420,20 +475,19 @@ def seq_sharded_decode_attention(q, k_cache, v_cache, lengths, new_k, new_v,
     """Decode attention with the cache sharded on the sequence over the
     ``model`` axis.
 
-    q: (B, H, hd); k_cache/v_cache: this rank's slice (B, S_loc, KVH, hd)
-    of the (B, S_loc * n, KVH, hd) cache, rank i holding positions
-    [i * S_loc, (i + 1) * S_loc); lengths: (B,); new_k/new_v: (B, KVH, hd),
-    the token to insert at ``lengths``. Writes the slice in place and
-    returns (out (B, H, hd) whole, k_cache, v_cache). Without a mesh, or
-    with one rank on the axis, the slice is the whole cache.
+    q: (B, H, hd), the rank's rows; k_cache/v_cache: this rank's slice
+    (B, S_loc, KVH, hd) of its rows' (B, S_loc * n, KVH, hd) cache, rank i
+    of ``model`` holding positions [i * S_loc, (i + 1) * S_loc); lengths:
+    (B,); new_k/new_v: (B, KVH, hd), the token to insert at ``lengths``.
+    Writes the slice in place and returns (out (B, H, hd), whole on every
+    rank of ``model``, k_cache, v_cache). Without a mesh, or with one rank
+    on the axis, the slice is the whole cache.
     """
     n = mesh_axis_size(mesh, AXIS_MODEL) if mesh is not None else 1
     offset = mesh.coords[AXIS_MODEL] * k_cache.shape[1] if n > 1 else 0
     _insert(k_cache, v_cache, lengths, new_k, new_v, offset)
     B, H, hd = q.shape
-    rows = batch_rows(mesh, B) if n > 1 else None
-    b = rows[0] if rows else slice(None)
-    o, m, l = _partial(q[b], k_cache[b], v_cache[b], lengths[b], offset)
+    o, m, l = _partial(q, k_cache, v_cache, lengths, offset)
     if n > 1:
         group = mesh.group(AXIS_MODEL)
         mx = all_reduce(m.clone(), group, dist.ReduceOp.MAX)
@@ -443,7 +497,5 @@ def seq_sharded_decode_attention(q, k_cache, v_cache, lengths, new_k, new_v,
                                    (l * alpha)[..., None]], dim=-1), group)
         o, l = ol[..., :hd], ol[..., hd]
     out = (o / torch.clamp(l, min=1e-30)[..., None]).reshape(
-        o.shape[0], H, hd).to(q.dtype)
-    if rows:
-        out = all_gather(out, 0, rows[1])
+        B, H, hd).to(q.dtype)
     return out, k_cache, v_cache

@@ -36,6 +36,20 @@ and pages hold its KV heads, and its Mamba2 caches its SSM heads. Under
 ``decode_kv_shard`` "seq" each rank's contiguous cache holds its
 ``max_len / n`` positions and a prefill splice writes each rank's slice;
 paged KV then raises, as in the reference.
+
+The slots split over the mesh's batch axes (``pod``, ``data``) as the
+reference's cache specs split the decode batch (``Runtime.rows``): when
+``max_batch`` divides over them, slot s lives on batch rank s // (max_batch
+/ n), whose caches (and page pool) hold its ``max_batch / n`` slots, and
+each rank decodes its slots and all-gathers their greedy ids. Otherwise
+every rank holds every slot. A prefill group of k rows (``prefill_chunk``
+rows when set) splits the same way when k divides: each rank prefills its
+rows, the ids all-gather, and a row whose slot another rank holds moves
+there point to point (``parallel.collectives.exchange``; ``moved_rows``
+counts them), so no rank holds more than its own rows' prefill caches and
+the rows it receives. A group that does not divide runs whole on every
+rank, which splices the rows of its own slots. The slot choice, lengths,
+budgets and finish order stay the same on every rank.
 """
 from __future__ import annotations
 
@@ -43,10 +57,13 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.bridge import meta_params
 from repro_torch.models.blocks import DECODE_BLOCK_S
-from repro_torch.models.lm import LM, Runtime, resolve_device, tree_leaves
+from repro_torch.models.lm import (
+    LM, Runtime, resolve_device, tree_leaves, tree_map)
+from repro_torch.parallel.collectives import exchange, gather_rows
 from repro_torch.serve.paged import PagedKVAllocator
 
 
@@ -107,10 +124,17 @@ class Engine:
                 "paged KV is incompatible with decode_kv_shard='seq'")
         # this rank's positions of each slot's cache under "seq"
         self.window = self.rt.seq_window(lm.cfg, max_len)
+        # the slots this rank holds, [own.start, own.stop), and the group
+        # over the batch axes that holds the others (None: every rank
+        # holds every slot)
+        self.rows = self.rt.rows(max_batch)
+        self.own, self.data = self.rows or (slice(0, max_batch), None)
+        held = self.own.stop - self.own.start
+        self.moved_rows = 0           # prefill rows sent to another rank
         if page_size is None:
             self.pager = None
             self.caches = lm.init_cache(
-                max_batch, max_len if self.window is None
+                held, max_len if self.window is None
                 else self.window[1] - self.window[0], self.rt)
         else:
             if page_size < 1 or max_len % page_size:
@@ -118,12 +142,13 @@ class Engine:
                     f"max_len ({max_len}) must be a positive multiple of "
                     f"page_size ({page_size})")
             self.pages_per_slot = max_len // page_size
-            n_pages = 1 + max_batch * self.pages_per_slot
+            n_pages = 1 + held * self.pages_per_slot
             self.pager = PagedKVAllocator(n_pages, page_size=page_size,
                                           reserve_null=True)
-            self.caches = lm.init_paged_cache(max_batch, n_pages, page_size,
+            self.caches = lm.init_paged_cache(held, n_pages, page_size,
                                               self.rt)
-            self._page_table = np.zeros((max_batch, self.pages_per_slot),
+            # rows of the slots this rank holds
+            self._page_table = np.zeros((held, self.pages_per_slot),
                                         np.int32)
         self.steps = 0
         self.prefills = 0             # prefill forward passes run
@@ -146,6 +171,14 @@ class Engine:
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def holds(self, slot: int) -> bool:
+        """Whether this rank holds ``slot``'s caches and pages."""
+        return self.own.start <= slot < self.own.stop
+
+    def _local(self, slot: int) -> int:
+        """``slot``'s row in this rank's caches and page table."""
+        return slot - self.own.start
 
     # ---------------------------------------------------------- prefill
     def admit(self, req: Request) -> bool:
@@ -172,12 +205,13 @@ class Engine:
                 req.done = True
                 continue
             slot = self.free.pop()
-            if self.pager is not None:
+            if self.pager is not None and self.holds(slot):
                 need = -(-(plen + n_img + req.max_new_tokens)
                          // self.page_size)
                 pages = self.pager.alloc(slot, need)
-                self._page_table[slot] = 0
-                self._page_table[slot, :len(pages)] = pages
+                row = self._local(slot)
+                self._page_table[row] = 0
+                self._page_table[row, :len(pages)] = pages
             order[slot] = self._seq
             self._seq += 1
             groups.setdefault((plen, req.patches is not None),
@@ -195,29 +229,59 @@ class Engine:
                        order: dict[int, int],
                        pad_to: int | None = None) -> None:
         """One prefill forward pass for same-shape requests; splice each
-        row's cache into its slot."""
+        row's cache into its slot, on the ranks that hold it."""
         k = len(members)
         rows = [np.asarray(r.tokens) for _, r in members]
         if pad_to and k < pad_to:
             rows.extend([rows[-1]] * (pad_to - k))
-        batch = {"tokens": self._to_device(np.stack(rows))}
+        split = self.rt.rows(len(rows))
+        mine, data = split or (slice(None), None)
+        batch = {"tokens": self._to_device(np.stack(rows)[mine])}
         if has_patches:
             prows = [np.asarray(r.patches) for _, r in members]
             if pad_to and k < pad_to:
                 prows.extend([prows[-1]] * (pad_to - k))
-            batch["patches"] = self._to_device(np.stack(prows))
+            batch["patches"] = self._to_device(np.stack(prows)[mine])
         n_img = self.lm.cfg.n_patches if has_patches else 0
-        logits, pre_caches = self.lm.prefill(batch, rt=self.rt)
+        logits, pre_caches = self.lm.prefill(batch, rt=self.rt, rows=split)
         self.prefills += 1
-        toks = torch.argmax(logits, dim=-1)[:k].cpu().numpy().astype(np.int32)
-        slots = np.array([s for s, _ in members])
+        toks = gather_rows(torch.argmax(logits, dim=-1), data)
+        toks = toks[:k].cpu().numpy().astype(np.int32)
+        sends, recvs = [], []       # (rank, a row's caches[, slot])
+        if split is None:
+            # every rank ran every row: each splices the slots it holds
+            for i, (slot, _) in enumerate(members):
+                if self.holds(slot):
+                    self._splice(pre_caches, slot, i)
+        else:
+            # row i ran on batch rank i // per; its slot lives on one rank,
+            # or on every rank when the slots are not split
+            me, n = dist.get_rank(data), dist.get_world_size(data)
+            per, held = mine.stop - mine.start, self.own.stop - self.own.start
+            for i, (slot, _) in enumerate(members):
+                src = i // per
+                for dst in (range(n) if self.data is None
+                            else (slot // held,)):
+                    if src == dst == me:
+                        self._splice(pre_caches, slot, i - mine.start)
+                    elif src != dst:
+                        self.moved_rows += 1
+                        if src == me:
+                            sends.append((dst, _row(pre_caches,
+                                                    i - mine.start)))
+                        elif dst == me:
+                            recvs.append((src, _row(pre_caches, 0), slot))
         for i, (slot, req) in enumerate(members):
-            self.lm.splice(self.caches, pre_caches, slot, i,
-                           pages=None if self.pager is None
-                           else self._page_table[slot],
-                           page_size=self.page_size, window=self.window)
             self.active[slot] = req
             req.out_tokens.append(toks[i])
+        if split is not None:
+            got = iter(exchange(
+                [(dst, t) for dst, row in sends for t in _leaves(row)],
+                [(src, t) for src, row, _ in recvs for t in _leaves(row)],
+                data))
+            for _, like, slot in recvs:
+                self._splice(_filled(like, got), slot, 0)
+        slots = np.array([s for s, _ in members])
         self.lengths[slots] = plen + n_img
         self._last_tok[slots] = toks
         self._out_buf[slots, 0] = toks
@@ -228,25 +292,34 @@ class Engine:
         # back in admission order across shape groups
         self._admit_seq[slots] = [order[s] for s, _ in members]
 
+    def _splice(self, pre, slot: int, row: int) -> None:
+        """Row ``row`` of prefill caches ``pre`` into this rank's row of
+        ``slot``."""
+        local = self._local(slot)
+        self.lm.splice(self.caches, pre, local, row,
+                       pages=None if self.pager is None
+                       else self._page_table[local],
+                       page_size=self.page_size, window=self.window)
+
     # ----------------------------------------------------------- decode
     def step(self) -> list[Request]:
         """One decode step for all active slots; returns finished requests."""
         if not self.active:
             return []
-        ncb = self.lm.cfg.n_codebooks
-        toks = (self._last_tok[:, None] if ncb <= 1
-                else self._last_tok[:, None, :])
+        own = self.own
+        toks = self._last_tok[own][:, None]
         table = (None if self.pager is None
                  else self._to_device(self._page_table))
         # a zero-budget request admitted at max_len decodes once from a full
         # row; only then does the step need the masked cache write
-        full = self.lengths >= self.max_len
+        full = self.lengths[own] >= self.max_len
         logits, self.caches = self.lm.decode(
-            self._to_device(toks), self._to_device(self.lengths),
+            self._to_device(toks), self._to_device(self.lengths[own]),
             self.caches, page_table=table, rt=self.rt,
             full=self._to_device(full) if full.any() else None,
-            block_s=self.decode_block_s)
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
+            rows=self.rows, block_s=self.decode_block_s)
+        nxt = gather_rows(torch.argmax(logits, dim=-1), self.data)
+        nxt = nxt.cpu().numpy().astype(np.int32)
         mask = self._active_mask
         self._last_tok[mask] = nxt[mask]
         self._out_buf[mask, self._out_len[mask]] = nxt[mask]
@@ -265,9 +338,9 @@ class Engine:
                               for i in range(int(self._out_len[slot]))]
             self._active_mask[slot] = False
             self.lengths[slot] = 0
-            if self.pager is not None:
+            if self.pager is not None and self.holds(slot):
                 self.pager.free(slot)
-                self._page_table[slot] = 0   # back to the null page
+                self._page_table[self._local(slot)] = 0   # the null page
             self.free.append(slot)
             finished.append(req)
         return finished
@@ -289,3 +362,21 @@ class Engine:
                 pending = [r for r in pending if id(r) not in taken]
             done.extend(self.step())
         return done
+
+
+def _row(caches, row: int):
+    """Row ``row`` of a cache tree, batch axis kept (one row)."""
+    return tree_map(lambda t: t[:, row:row + 1], caches)
+
+
+def _leaves(tree) -> list:
+    """A cache tree's tensors in ``tree_map``'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _filled(like, leaves):
+    """The tree of ``like`` holding the next tensors of the iterator
+    ``leaves``, in ``_leaves``' order."""
+    return tree_map(lambda _: next(leaves), like)

@@ -1,7 +1,7 @@
 """The port stands alone and never falls back.
 
 - No module of ``src/repro_torch``, not ``chip_smoke.py``, not
-  ``benchmarks/torch_{serve_fleet,elastic}.py`` and no
+  ``benchmarks/torch_{serve_fleet,elastic,dryrun_compare}.py`` and no
   ``examples/*_torch.py`` imports jax or anything of ``repro``;
   importing every port module loads neither. Nor do they
   import ``msgpack``, which the card is not known to have: the
@@ -55,7 +55,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "benchmarks" / "torch_serve_fleet.py",
-    ROOT / "benchmarks" / "torch_elastic.py"] + sorted(
+    ROOT / "benchmarks" / "torch_elastic.py",
+    ROOT / "benchmarks" / "torch_dryrun_compare.py"] + sorted(
     (ROOT / "examples").glob("*_torch.py"))
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)

@@ -9,7 +9,10 @@ the CPU, in fp32.
 - Collectives and expert-parallel MoE within 1e-5 of the reference's
   ``shard_map`` versions at meshes (1, 2), (1, 4) and (2, 2): GQA, a row
   at ``max_len``, a batch that does not divide over ``data``, a ring whose
-  sequence does not divide, drops at capacity factor 1.0.
+  sequence does not divide, drops at capacity factor 1.0. Where a batch
+  divides over ``data``, each rank passes its rows and the harness
+  gathers them (``tests/test_torch_batch_serve.py`` holds the rows
+  themselves).
 - ``LM.prefill`` and 4 ``LM.decode`` steps under each mesh (ring
   prefill, sequence-sharded decode, experts split; the MLPs, vocab and
   Mamba2 heads split too, attention stays whole) within 1e-4 on logits
@@ -191,7 +194,8 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.lm import LM, Runtime
 from repro_torch.models.moe import moe_apply
 from repro_torch.parallel.collectives import (
-    all_gather, ring_attention, seq_sharded_decode_attention)
+    all_gather, batch_rows, gather_rows, ring_attention,
+    seq_sharded_decode_attention)
 from repro_torch.serve.engine import Engine, Request
 
 rank, world, port, work = (int(sys.argv[1]), int(sys.argv[2]),
@@ -216,6 +220,13 @@ def nested(prefix):
     return tree
 
 
+def split(B):
+    # (this rank's rows, the batch group or None) of a batch of B: the
+    # collectives and the serving passes take the rank's rows where B
+    # divides over the batch axes, and the whole batch gathers here
+    return batch_rows(mesh, B) or (slice(None), None)
+
+
 for data, model in spec["worlds"][str(world)]:
     mesh = make_mesh(data, model, device="cpu")
     tag = f"{data}x{model}"
@@ -223,15 +234,21 @@ for data, model in spec["worlds"][str(world)]:
     for name in spec["decode"]:
         q, k, v, lengths, nk, nv = (t(inp[f"{name}/{x}"]) for x in
                                     ("q", "k", "v", "lengths", "new_k", "new_v"))
+        b, group = split(q.shape[0])
+        q, k, v, lengths, nk, nv = (x[b] for x in (q, k, v, lengths, nk, nv))
         Sl = k.shape[1] // n
         kl, vl = (c[:, i * Sl:(i + 1) * Sl].clone() for c in (k, v))
         o, kl, vl = seq_sharded_decode_attention(q, kl, vl, lengths, nk, nv, mesh)
-        out[f"{tag}/{name}/out"] = o
-        out[f"{tag}/{name}/k"] = all_gather(kl, 1, mesh.group("model"))
-        out[f"{tag}/{name}/v"] = all_gather(vl, 1, mesh.group("model"))
+        out[f"{tag}/{name}/out"] = gather_rows(o, group)
+        out[f"{tag}/{name}/k"] = gather_rows(
+            all_gather(kl, 1, mesh.group("model")), group)
+        out[f"{tag}/{name}/v"] = gather_rows(
+            all_gather(vl, 1, mesh.group("model")), group)
     for name in spec["ring"]:
         q, k, v = (t(inp[f"{name}/{x}"]) for x in ("q", "k", "v"))
-        out[f"{tag}/{name}/out"] = ring_attention(q, k, v, mesh)
+        b, group = split(q.shape[0])
+        out[f"{tag}/{name}/out"] = gather_rows(
+            ring_attention(q[b], k[b], v[b], mesh), group)
     mcfg = dataclasses.replace(configs.get_smoke_config("arctic-480b"),
                                dtype="float32", **spec["moe_cfg"])
     E = mcfg.n_experts
@@ -239,7 +256,10 @@ for data, model in spec["worlds"][str(world)]:
     for name in spec["moe"]:
         p = {w: t(inp[f"{name}/{w}"][lo:hi]) for w in ("w_in", "w_gate", "w_out")}
         x, ids, wts = (t(inp[f"{name}/{x}"]) for x in ("x", "ids", "wts"))
-        out[f"{tag}/{name}/out"] = moe_apply(p, mcfg, x, ids.long(), wts, mesh=mesh)
+        b, group = split(x.shape[0])
+        out[f"{tag}/{name}/out"] = gather_rows(moe_apply(
+            p, mcfg, x[b], ids.long()[b], wts[b], mesh=mesh, data=group),
+            group)
     for arch in spec["lm_archs"]:
         cfg = dataclasses.replace(configs.get_smoke_config(arch),
                                   dtype="float32")
@@ -247,19 +267,21 @@ for data, model in spec["worlds"][str(world)]:
         lm = LM(cfg, params_from_jax(nested(arch + "/params/"), "cpu",
                                      mesh=mesh, cfg=cfg,
                                      parallel=rt.parallel), device="cpu")
-        toks = t(inp[f"{arch}/prompt"])
+        pair = rt.rows(inp[f"{arch}/prompt"].shape[0])
+        b, group = pair or (slice(None), None)
+        toks = t(inp[f"{arch}/prompt"])[b]
         B, S = toks.shape
-        logits, pre = lm.prefill({"tokens": toks}, rt=rt)
-        out[f"{tag}/{arch}/prefill"] = logits
+        logits, pre = lm.prefill({"tokens": toks}, rt=rt, rows=pair)
+        out[f"{tag}/{arch}/prefill"] = gather_rows(logits, group)
         window = rt.seq_window(cfg, spec["lm_max_len"])
         caches = lm.init_cache(B, window[1] - window[0], rt)
-        for b in range(B):
-            lm.splice(caches, pre, b, b, window=window)
+        for r in range(B):
+            lm.splice(caches, pre, r, r, window=window)
         for s in range(spec["steps"]):
             lengths = torch.full((B,), S + s, dtype=torch.int32)
-            logits, caches = lm.decode(t(inp[f"{arch}/next"][:, s:s + 1]),
-                                       lengths, caches, rt=rt)
-            out[f"{tag}/{arch}/decode{s}"] = logits
+            logits, caches = lm.decode(t(inp[f"{arch}/next"][:, s:s + 1])[b],
+                                       lengths, caches, rt=rt, rows=pair)
+            out[f"{tag}/{arch}/decode{s}"] = gather_rows(logits, group)
     if data == 1:
         arch = spec["engine_arch"]
         cfg = configs.get_smoke_config(arch)

@@ -14,7 +14,8 @@ in fp32.
   (codebooks), mamba2-1.3b (``ssm_inner``), jamba (hybrid, MoE) and
   arctic (dense residual beside the experts). Their KV heads (2) at
   n = 4 keep attention whole ("seq"); musicgen's 4 split one a rank. The
-  vocab-split embedding equals the one-rank port's bit for bit.
+  vocab-split embedding equals the one-rank port's bit for bit. At (2, 2)
+  each rank passes its rows of the batch and the harness gathers them.
 - The port's ``Engine`` on qwen3's smoke config serves the single-rank
   port's and the JAX engine's tokens in the same finish order,
   contiguous and paged, at every mesh (paged only where attention splits
@@ -179,6 +180,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.lm import LM, Runtime
+from repro_torch.parallel.collectives import gather_rows
 from repro_torch.serve.engine import Engine, Request
 
 rank, world, port, work = (int(sys.argv[1]), int(sys.argv[2]),
@@ -216,23 +218,29 @@ for data, model in spec["worlds"][str(world)]:
         meta[f"{tag}/{arch}"] = [tp.attn, tp.ssm, tp.vocab,
                                  tp.mlp(cfg.d_ff)]
         toks = t(inp[f"{arch}/prompt"])
-        B, S = toks.shape[:2]
         out[f"{tag}/{arch}/embed"] = lm.embed({"tokens": toks}, rt)
-        logits, pre = lm.prefill({"tokens": toks}, rt=rt)
-        out[f"{tag}/{arch}/prefill"] = logits
+        # the serving passes take the rank's rows where the batch divides
+        # over the batch axes; the harness gathers them
+        rows = rt.rows(toks.shape[0])
+        b, group = rows or (slice(None), None)
+        toks = toks[b]
+        B, S = toks.shape[:2]
+        logits, pre = lm.prefill({"tokens": toks}, rt=rt, rows=rows)
+        out[f"{tag}/{arch}/prefill"] = gather_rows(logits, group)
         if tp.attn and cfg.block_kind(0) == "attn":
-            out[f"{tag}/{arch}/k0"] = pre["pos0"][0][0]   # this rank's heads
+            # this rank's heads
+            out[f"{tag}/{arch}/k0"] = gather_rows(pre["pos0"][0][0], group)
         window = rt.seq_window(cfg, spec["lm_max_len"])
         caches = lm.init_cache(B, spec["lm_max_len"] if window is None
                                else window[1] - window[0], rt)
-        for b in range(B):
-            lm.splice(caches, pre, b, b, window=window)
+        for r in range(B):
+            lm.splice(caches, pre, r, r, window=window)
         nxt = inp[f"{arch}/next"]
         for s in range(spec["steps"]):
             lengths = torch.full((B,), S + s, dtype=torch.int32)
-            logits, caches = lm.decode(t(nxt[:, s:s + 1]), lengths, caches,
-                                       rt=rt)
-            out[f"{tag}/{arch}/decode{s}"] = logits
+            logits, caches = lm.decode(t(nxt[:, s:s + 1])[b], lengths,
+                                       caches, rt=rt, rows=rows)
+            out[f"{tag}/{arch}/decode{s}"] = gather_rows(logits, group)
     cfg = dataclasses.replace(configs.get_smoke_config(spec["engine_arch"]),
                               dtype="float32")
     lm = LM(cfg, params_from_jax(nested(spec["engine_arch"] + "/params/"),
