@@ -54,13 +54,17 @@ parallel. serving across ranks (``repro_torch.parallel``): a world of 2
    (heads, MLP and vocab halved: 13.76 GiB a rank), contiguous and paged,
    equal tokens; (T3) mamba2-1.3b at full width and depth, its 64 SSM
    heads split 32 a rank; (A) arctic's 2-layer cut, tensor- and
-   expert-parallel (64 of 128 experts a rank); each held against phase
-   4's first decode step by ``check_tp_run``. (B) adds to (A) the
-   sequence-sharded decode cache and ring prefill (attention whole), held
+   expert-parallel (64 of 128 experts a rank, 64 router columns); each
+   held against phase 4's first decode step by ``check_tp_run``. (B) adds
+   to (A) the sequence-sharded decode cache and ring prefill, held
    against (A) by ``check_seq_run``, with its two collectives at the
-   path's shapes against the decode and flash kernels. (T2) 2-layer fp32
-   cuts of qwen3 and mamba2 at published widths against one rank on the
-   card. The launch counters and the head counts each kernel saw show
+   path's shapes against the decode and flash kernels. (C) is (A) with
+   the sequence-sharded decode cache alone: attention on the column path
+   (its leaves column-cut, q, k, v gathered whole), prefill split by
+   padded heads, 28 a rank through the flash kernel, held against (A) by
+   ``check_seq_run``. T3's 2-layer fp32 cut of mamba2 at published
+   widths against one rank on the card ((T2), qwen3's, went for time in
+   PR 26: T1 and tp-train's (f1) hold qwen3's split). The launch counters and the head counts each kernel saw show
    every step through the kernels at the rank's heads. Per rank:
    backend, bytes held against the whole model, peak memory, prefill ms
    a group and decode ms a step beside phase 5's one-rank numbers.
@@ -277,8 +281,9 @@ ARCH = "musicgen-large"
 # the dsp phase's depth: its fleet runs are host-bound (a decode step's
 # time grows with the layers, ~7 s of the phase a layer), and phase 4
 # serves the full 48 (24 until the batch phase took the script to 900 s
-# after the fsdp and tp-train phases' cuts)
-DSP_LAYERS = 16
+# after the fsdp and tp-train phases' cuts; 16 until run (C) and a slow
+# host took it to 993 s, 8 at 948 s)
+DSP_LAYERS = 4
 # (arch, layers kept or None for all, smoke config, why)
 PATHS = (
     ("musicgen-large", None, False, "full width and depth"),
@@ -300,8 +305,11 @@ MAX_BATCH, MAX_LEN = 8, 1024
 # the parallel phase: a mesh (1, 2) of two ranks on the card. Each run:
 # (name, arch, layers kept or None, ParallelConfig overrides, engine
 # modes); phase 4 records the first decode step of each arch's
-# contiguous run, which ``check_tp_run`` holds the run against, and (B)
-# is held against (A)
+# contiguous run, which ``check_tp_run`` holds the run against, and the
+# runs of SEQ_RUNS are held against (A). (C) takes attention's column
+# path at full width: every published KV-head count divides by 2, so only
+# the "seq" mode leaves it there in a world of 2 (the smallest world that
+# pads heads is 8 ranks, qwen2-7b's 4 KV heads)
 PARALLEL_WORLD = 2
 PARALLEL_RUNS = (
     ("T1", "qwen3-14b", None, {}, ("contiguous", "paged")),
@@ -309,7 +317,9 @@ PARALLEL_RUNS = (
     ("A", "arctic-480b", 2, {}, ("contiguous",)),
     ("B", "arctic-480b", 2, {"decode_kv_shard": "seq",
                              "attn_seq_parallel": True}, ("contiguous",)),
+    ("C", "arctic-480b", 2, {"decode_kv_shard": "seq"}, ("contiguous",)),
 )
+SEQ_RUNS = ("B", "C")
 # the batch phase: a world of BATCH_WORLD gloo ranks on the card at (data
 # BATCH_WORLD), each holding MAX_BATCH / BATCH_WORLD slots and computing
 # only its rows: (h1) BATCH_ARCH at published widths and depth on phase
@@ -322,17 +332,24 @@ BATCH_WORLD, BATCH_ARCH = 2, "musicgen-large"
 # H100 (PERF.md §6), so any gap fails the phase
 BATCH_LOGITS_TOL = 0.0
 RECORDED = {arch for _, arch, _, _, _ in PARALLEL_RUNS} | {BATCH_ARCH}
-# (T2) and T3's cut: published widths, 2 layers, fp32, against one rank
-TP_CUTS = ("qwen3-14b", "mamba2-1.3b")
+# T3's cut: published widths, 2 layers, fp32, against one rank ((T2),
+# qwen3's, went when run (C) and a slow host took the script to 993 s:
+# T1 serves qwen3 split in bf16 and tp-train's (f1) trains it in fp32)
+TP_CUTS = ("mamba2-1.3b",)
 # qwen3-14b over 2 ranks: half of every leaf but the norms
 T1_GIB = 13.76
-# (B)'s first decode step against (A)'s, on the rows whose fed token and
-# every MoE layer's experts agree: their logits move only by bf16 rounding
-# (ring against flash, the sequence-sharded partials against the decode
-# kernel), which read 0.0547-0.0859 on those 7 of 8 rows on the H100. A
-# row whose near-tied top-2 flips moves by units (5.24) and is left out,
-# but at least half the rows must keep their experts.
-PARALLEL_LOGITS_TOL = 0.25
+# (B)'s and (C)'s first decode step against (A)'s, on the rows whose fed
+# token and every MoE layer's experts agree: their logits move only by
+# bf16 rounding (ring against flash, the sequence-sharded partials against
+# the decode kernel; (C) gathers its q, k, v and attends with the same
+# heads as (A) at prefill, so its layer-0 K/V equal (A)'s bit for bit).
+# (B) read 0.0547-0.0859 on those rows on the H100, 0.0820 with attention
+# column-cut; (C) 0.0703, every row kept, and its limit is 3x that. A row
+# whose near-tied top-2 flips moves by units (5.24) and is left out, but
+# at least half the rows must keep their experts: the column path's
+# planted faults (the other rank's output columns through wo, the padded
+# heads joined in swapped order) kept none (PERF.md section 6).
+PARALLEL_LOGITS_TOL = {"B": 0.25, "C": 0.21}
 # a tensor-parallel run's first window's prefill (every row) and first
 # decode step (the rows whose fed token, experts and greedy token agree)
 # against one rank's: bf16 rounding of the row-parallel sums moves them,
@@ -1362,12 +1379,13 @@ def _tp_run(mesh, arch, layers, over, modes, first_path, record=False):
     torch.cuda.synchronize()
     lm = LM(cfg, params, device="cuda")
     h0, h1 = tp.ssm_heads(cfg) if cfg.ssm else (0, 0)
-    n_exp = (cfg.n_experts // tp.n if cfg.moe and cfg.n_experts % tp.n == 0
-             else cfg.n_experts)
+    n_exp = cfg.n_experts // tp.n if tp.experts else cfg.n_experts
     res = {"draw_s": time.perf_counter() - t0,
            "held_gib": bytes_held(params) / 2**30,
            "whole_gib": bytes_held(meta_params(cfg)) / 2**30,
-           "split": {"attention by heads": tp.attn, "vocab": tp.vocab,
+           "split": {"attention by heads": tp.attn,
+                     "attention by columns": tp.columns,
+                     "router": tp.experts, "vocab": tp.vocab,
                      "ssm heads": tp.ssm, "mlp": tp.mlp(cfg.d_ff)},
            "decode_kv_shard": rt.decode_kv_shard(cfg)}
     for mode in modes:
@@ -1395,7 +1413,9 @@ def _tp_run(mesh, arch, layers, over, modes, first_path, record=False):
             want["flash_attention"] = 0
         check(counts == want, f"parallel {arch} {mode}: launches {counts} "
               f"!= expected {want}")
-        want_w = {"flash_attention": {tp.heads(cfg)},
+        lo, hi = tp.padded_heads(cfg)
+        want_w = {"flash_attention": {hi - lo if tp.columns
+                                      else tp.heads(cfg)},
                   "decode_attention": {tp.heads(cfg)},
                   "paged_decode_attention": {tp.heads(cfg)},
                   "ssd_scan": {h1 - h0}, "moe_gmm": {n_exp}}
@@ -1621,38 +1641,38 @@ def check_tp_run(one, recs, tol, what, greedy=True):
             one["logits"].abs().max().item(), kv)
 
 
-def check_seq_run(fa, fbs):
-    """Hold run (B)'s first decode step against run (A)'s: ``fa`` is
-    (A)'s record, its first-layer caches joined by heads; ``fbs`` (B)'s,
-    one a rank, each holding a slice of the positions.
+def check_seq_run(fa, fbs, name):
+    """Hold run ``name`` of SEQ_RUNS' first decode step against run (A)'s:
+    ``fa`` is (A)'s record, its first-layer caches joined by heads;
+    ``fbs`` the run's, one a rank, each holding a slice of the positions.
 
-    Exact: (B)'s first-layer caches, its ranks' slices laid end to end,
-    equal (A)'s on every row at every position but the one this step
+    Exact: the run's first-layer caches, its ranks' slices laid end to
+    end, equal (A)'s on every row at every position but the one this step
     wrote, and there too on the rows whose fed token agrees, or within
-    the rounding of (A)'s narrower K/V product (``caches_agree``). That layer's K/V come from the tokens alone, so a
-    prefill splice outside its rank's window or a decode write at a wrong
-    offset differs here, whatever rounding did. Within
-    ``PARALLEL_LOGITS_TOL``: the logits of the rows whose fed token and
-    every MoE layer's experts agree, at least half the rows. Returns (the
-    kept rows' max abs error, every row's, the rows left out, the logits'
-    largest magnitude, the caches' difference or None)."""
-    fb = fbs[0]
-    same_tok = _fed_rows(fa, fb, "parallel (B)")
+    the rounding of a narrower K/V product (``caches_agree``). That
+    layer's K/V come from the tokens alone, so a prefill splice outside
+    its rank's window, a decode write at a wrong offset or K/V columns
+    gathered out of order differ here, whatever rounding did. Within
+    ``PARALLEL_LOGITS_TOL[name]``: the logits of the rows whose fed token
+    and every MoE layer's experts agree, at least half the rows. Returns
+    (the kept rows' max abs error, every row's, the rows left out, the
+    logits' largest magnitude, the caches' difference or None)."""
+    fb, what, tol = fbs[0], f"parallel ({name})", PARALLEL_LOGITS_TOL[name]
+    same_tok = _fed_rows(fa, fb, what)
     B, S = fa["k0"].shape[:2]
     keep = same_tok[:, None] | (torch.arange(S)[None, :]
                                 != fa["lengths"].long()[:, None])
-    got = [caches_agree(torch.cat([x[name] for x in fbs], dim=1), fa[name],
-                        keep, f"parallel (B) {name}") for name in ("k0", "v0")]
+    got = [caches_agree(torch.cat([x[n] for x in fbs], dim=1), fa[n],
+                        keep, f"{what} {n}") for n in ("k0", "v0")]
     kv = {n: x for n, x in zip("KV", got) if x is not None} or None
     row_err = (fb["logits"] - fa["logits"]).abs().reshape(B, -1).amax(-1)
     kept = same_tok & ~_flipped(fa, fb)
-    check(2 * int(kept.sum()) >= B, f"parallel (B): only {int(kept.sum())}"
-          f" of {B} rows kept their token and experts at the first decode "
-          "step")
+    check(2 * int(kept.sum()) >= B, f"{what}: only {int(kept.sum())} of {B}"
+          " rows kept their token and experts at the first decode step "
+          f"(logits by row {[round(e, 4) for e in row_err.tolist()]})")
     err = row_err[kept].max().item()
-    check(err <= PARALLEL_LOGITS_TOL, f"parallel (B): first decode step's "
-          f"logits {err:.3e} from (A)'s on the rows whose token and experts "
-          f"agree, over {PARALLEL_LOGITS_TOL}")
+    check(err <= tol, f"{what}: first decode step's logits {err:.3e} from "
+          f"(A)'s on the rows whose token and experts agree, over {tol}")
     return (err, row_err.tolist(), (~kept).nonzero().flatten().tolist(),
             fa["logits"].abs().max().item(), kv)
 
@@ -1720,15 +1740,18 @@ def phase_parallel(single, smi, runs=PARALLEL_RUNS, cuts=TP_CUTS):
     ``check_tp_run`` against phase 4's first decode step; T1 serves
     contiguous and paged with equal tokens, every page freed, and holds
     ``T1_GIB`` a rank. (B), (A) with the sequence-sharded decode cache and
-    ring prefill (attention whole), passes ``check_seq_run`` against (A),
-    and each rank holds those collectives at the path's shapes against the
-    kernels one rank runs. The fp32 ``cuts`` (T2, and T3's) match one
-    rank on the card within ``REF_TOL``. The share of (B)'s tokens equal
-    to (A)'s is printed, not gated: bf16 rounding that differs flips
-    near-tied top-2 choices and greedy argmaxes, and the runs part from
-    there. Each rank sets its launch counters to 0 just before each
-    engine run and reads them just after. Returns (the runs' summed
-    launch counts, each run's)."""
+    ring prefill (attention on the column path, whole at the ring),
+    passes ``check_seq_run`` against (A), and each rank holds those
+    collectives at the path's shapes against the kernels one rank runs.
+    (C), (A) with the sequence-sharded decode cache alone (the column
+    path: prefill by padded heads through flash), passes
+    ``check_seq_run`` against (A) too. The fp32 ``cuts`` (T3's) match
+    one rank on the card within ``REF_TOL``. The share of (B)'s
+    and (C)'s tokens equal to (A)'s is printed, not gated: bf16 rounding
+    that differs flips near-tied top-2 choices and greedy argmaxes, and
+    the runs part from there. Each rank sets its launch counters to 0
+    just before each engine run and reads them just after. Returns (the
+    runs' summed launch counts, each run's)."""
     import shutil
     import socket
 
@@ -1815,7 +1838,7 @@ def phase_parallel(single, smi, runs=PARALLEL_RUNS, cuts=TP_CUTS):
                       for x in first[name]),
                   f"parallel ({name}): the ranks' first decode steps differ "
                   f"({key})")
-        if name == "B":
+        if name in SEQ_RUNS:
             continue
         pre, err, row_err, left, scale, kv = check_tp_run(
             one.first, first[name], TP_LOGITS_TOL[arch], f"parallel ({name})",
@@ -1835,28 +1858,33 @@ def phase_parallel(single, smi, runs=PARALLEL_RUNS, cuts=TP_CUTS):
               f"{same} of {n_tok} tokens ({same / n_tok:.1%}) equal to one "
               f"rank's; {smi}")
     names = {name for name, *_ in runs}
-    if {"A", "B"} <= names:
+    for name in SEQ_RUNS:
+        if not {"A", name} <= names:
+            continue
         fa = dict(first["A"][0], **{k: join_heads(x[k] for x in first["A"])
                                     for k in ("k0", "v0")})
-        err, row_err, left, scale, kv = check_seq_run(fa, first["B"])
+        err, row_err, left, scale, kv = check_seq_run(fa, first[name], name)
         a = ranks[0]["A"]["contiguous"]["served"]
-        b = ranks[0]["B"]["contiguous"]["served"]
+        b = ranks[0][name]["contiguous"]["served"]
         same = sum(t == u for (_, ta), (_, tb) in zip(sorted(a), sorted(b))
                    for t, u in zip(ta, tb))
         n_tok = sum(len(t) for _, t in a)
-        coll = [res["collectives"] for res in ranks]
-        phase("parallel", "B", f"against (A) at the first decode step: the "
+        coll = ""
+        if name == "B":     # (B)'s collectives at the path's shapes
+            got = [res["collectives"] for res in ranks]
+            coll = (f" at the path's shapes, bf16, by rank: sequence-sharded "
+                    f"decode max abs err {[round(c['decode'], 6) for c in got]}"
+                    f" against the decode kernel, ring "
+                    f"{[round(c['ring'], 6) for c in got]} against flash "
+                    f"(tol {TOL['bfloat16']});")
+        phase("parallel", name, f"against (A) at the first decode step: the "
               f"first layer's K/V caches, the ranks' slices end to end, "
-              + f"against (A)'s joined by heads: {describe_kv(kv, fa)}"
-              + f"; logits {err:.3e} from (A)'s at most on the rows whose "
-              f"token and experts agree (limit {PARALLEL_LOGITS_TOL}; "
-              f"|logit| up to {scale:.3f}), by row "
-              f"{[round(e, 4) for e in row_err]} (left out: {left}); "
-              f"{same} of {n_tok} tokens ({same / n_tok:.1%}) equal to (A)'s;"
-              f" at the path's shapes, bf16, by rank: sequence-sharded decode"
-              f" max abs err {[round(c['decode'], 6) for c in coll]} against"
-              f" the decode kernel, ring {[round(c['ring'], 6) for c in coll]}"
-              f" against flash (tol {TOL['bfloat16']}); {smi}")
+              f"against (A)'s joined by heads: {describe_kv(kv, fa)}; logits "
+              f"{err:.3e} from (A)'s at most on the rows whose token and "
+              f"experts agree (limit {PARALLEL_LOGITS_TOL[name]}; |logit| up "
+              f"to {scale:.3f}), by row {[round(e, 4) for e in row_err]} "
+              f"(left out: {left}); {same} of {n_tok} tokens "
+              f"({same / n_tok:.1%}) equal to (A)'s;{coll} {smi}")
     if "T1" in names:
         errs = {k: [round(r["row_parallel"][k], 6) for r in ranks]
                 for k in ("wo", "w_out")}

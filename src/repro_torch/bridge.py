@@ -13,9 +13,11 @@ cannot reproduce ``jax.random``'s draws, so parity runs use
 records for every leaf (``parallel.sharding`` places them). Given a mesh
 (and the ``ParallelConfig`` the model will serve under), both
 ``params_from_jax`` and ``init_params`` keep only this rank's slice of
-each leaf that serving splits over the ``model`` axis (``shard_leaf``):
-the MoE experts, and the heads, MLP, vocab and Mamba2 leaves that
-``parallel.tensor.tensor_plan`` splits. ``init_params`` still draws the
+each leaf that the reference's ``resolve_spec`` cuts over the ``model``
+axis (``shard_leaf``): the MoE experts and the router's columns,
+attention's flattened heads (mid-head where the columns fall so), the
+MLP, the vocab, and the Mamba2 leaves that ``parallel.tensor.
+tensor_plan`` splits. ``init_params`` still draws the
 whole stream, so a sharded model's weights are exactly the slices of the
 single-rank model's. Training under the ``model`` axis holds the same
 slices: ``ModelSplit`` takes a rank's slices of whole leaves (a
@@ -99,19 +101,23 @@ def param_axes(cfg):
 
 def shard_leaf(path: str, shape, mesh, tp: TensorParallel):
     """(dim, start, stop) of the slice of leaf ``path`` (of ``shape``)
-    that this rank of ``mesh`` holds, or None when it holds it whole.
+    that this rank of ``mesh`` holds, or None when it holds it whole: the
+    one place that cuts a leaf over ``model``.
 
     A leaf is cut along the dim where ``resolve_spec`` places the
     ``model`` axis, into equal parts, when ``tp`` (``parallel.tensor.
-    tensor_plan``) splits its family: the experts (the leaves whose axes,
-    after ``layers``, begin with ``experts``; the router's ``experts`` dim
-    stays whole, since every rank routes every token), attention's heads
-    and KV heads, an MLP's hidden units, the vocab, and Mamba2's inner
-    channels and heads."""
+    tensor_plan``, whose fields the compute reads too) cuts its family:
+    the experts (the expert weights' leading ``experts`` dim and the
+    router's columns, ``tp.experts``), attention's flattened ``q_dim``
+    (``wq``, ``bq``, ``wo``'s rows) and ``kv_dim`` (``wk``, ``wv``,
+    ``bk``, ``bv``; ``tp.attn_cut``), mid-head where the columns fall so,
+    an MLP's hidden units, the vocab, and Mamba2's inner channels
+    and heads. Attention and the experts are cut wherever
+    ``resolve_spec`` cuts them; a Mamba2 whose heads would split its B/C
+    groups is kept whole (``tp.ssm``)."""
     if mesh.shape.get(AXIS_MODEL, 1) == 1:
         return None
     axes = leaf_axes(path)
-    lead = 1 if axes[0] == "layers" else 0
     spec = resolve_spec(axes, tuple(shape), mesh)
     on_model = [d for d, at in enumerate(spec)
                 if AXIS_MODEL in ((at,) if isinstance(at, str) else
@@ -120,8 +126,8 @@ def shard_leaf(path: str, shape, mesh, tp: TensorParallel):
         return None
     dim = on_model[0]
     name = axes[dim]
-    split = {"experts": dim == lead, "heads": tp.attn,
-             "kv_heads": tp.attn, "mlp": tp.mlp(shape[dim]),
+    split = {"experts": tp.experts, "heads": tp.attn_cut,
+             "kv_heads": tp.attn_cut, "mlp": tp.mlp(shape[dim]),
              "vocab": tp.vocab, "ssm_inner": tp.ssm}.get(name, False)
     if not split:
         return None

@@ -21,13 +21,17 @@ from repro_torch.models.layers import apply_rope, rmsnorm
 NEG_INF = -1e30
 
 
-def qkv_proj(p, cfg, x, positions, heads=None):
+def qkv_proj(p, cfg, x, positions, heads=None, join=None):
     """x: (B, S, d) -> q (B, S, H, hd), k/v (B, S, KVH, hd), roped
     (and qk-normed where the config says so). ``heads``: (H, KVH), the
     rank's head counts under tensor parallelism (``parallel.tensor``),
     whose weights hold those heads' columns; the config's by default. The
     norms are per ``head_dim`` and RoPE per head, so a rank applies them
-    to its heads alone."""
+    to its heads alone. ``join``: None, or ``(q, k, v) -> (q, k, v)``
+    applied to the products (biases added) before the heads are formed:
+    tensor parallelism's column path joins the ranks' column slices,
+    which may end mid-head, into whole q, k, v
+    (``TensorParallel.join_qkv``)."""
     B, S, _ = x.shape
     H, KVH = heads or (cfg.n_heads, cfg.n_kv_heads)
     q = x @ p["wq"]
@@ -35,6 +39,8 @@ def qkv_proj(p, cfg, x, positions, heads=None):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if join is not None:
+        q, k, v = join(q, k, v)
     q = q.reshape(B, S, H, cfg.head_dim)
     k = k.reshape(B, S, KVH, cfg.head_dim)
     v = v.reshape(B, S, KVH, cfg.head_dim)

@@ -9,19 +9,26 @@ package returns an updated copy that jit donates. Mamba2 layers run
 ``models.ssm`` (the ``ssd_scan`` kernel at prefill) and MoE layers
 ``models.moe`` (the ``moe_gmm`` kernel).
 
-Under a mesh (``Runtime.mesh``) attention has the reference's two
-sequence-parallel branches: with ``attn_seq_parallel`` prefill runs
-``ring_attention``, and with ``decode_kv_shard`` "seq" each rank's cache
-holds its slice of the positions and decode runs
-``seq_sharded_decode_attention``; attention then stays whole on every
-rank. Otherwise ("heads") the layers run tensor-parallel over the mesh's
-``model`` axis where ``Runtime.tensor`` splits them: a rank attends with
-its heads through the same kernels (flash on (B*H/n, S, hd), decode over
-its KVH/n cache heads, the same G), runs its share of each MLP's hidden
-units and of Mamba2's heads, and each row-parallel product (``wo``, an
-MLP's ``w_out``, Mamba2's ``w_out``) is summed over ``model``. MoE
-layers run expert-parallel (``moe_apply``); the dense residual's or the
-shared experts' partial joins the experts' before their one reduction.
+Under a mesh (``Runtime.mesh``) the layers run tensor-parallel over
+the mesh's ``model`` axis as ``Runtime.tensor`` splits them
+(``parallel.tensor``). Where attention's leaves are cut by whole heads
+(``attn``: the KV heads divide and the decode cache splits by heads) a
+rank attends with its heads through the same kernels (flash on
+(B*H/n, S, hd), decode over its KVH/n cache heads, the same G).
+Elsewhere they are cut by columns, as the reference stores them, and a
+rank's projections are gathered into whole q, k, v (the column path):
+prefill splits by heads padded to a multiple of n, a rank's Hp/n
+through the flash kernel (``padded_head_attention``), unless
+``attn_seq_parallel`` runs the reference's ``ring_attention``; decode
+attends whole over caches of every KV head, or with ``decode_kv_shard``
+"seq" over each rank's slice of the positions
+(``seq_sharded_decode_attention``). A rank runs its share of each MLP's
+hidden units and of Mamba2's heads, and each row-parallel product
+(``wo`` on the rank's heads or columns of the output, an MLP's
+``w_out``, Mamba2's ``w_out``) is summed over ``model``. MoE layers
+route on the logits of the rank's router columns, gathered whole, and
+run expert-parallel (``moe_apply``); the dense residual's or the shared
+experts' partial joins the experts' before their one reduction.
 Every layer, the ring, the sequence-sharded decode and the MoE layer
 included, takes and returns the rank's rows of the batch
 (``models.lm.Runtime.rows``); only the MoE layer's capacity reads the
@@ -37,6 +44,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.attention import (
@@ -76,18 +84,23 @@ def attn_block(p, cfg, x, positions, *, rt=None, cache=None, lengths=None,
     slice of the positions and decode runs
     ``seq_sharded_decode_attention``, whose insert rule leaves a full
     row's cache as it is (``full`` is not needed there). Where
-    ``rt.tensor(cfg)`` splits attention, q, k, v and the cache hold the
-    rank's heads, and the output is the sum over ``model`` of the ranks'
-    ``o @ wo`` partials.
+    ``rt.tensor(cfg)`` splits attention by whole heads, q, k, v and the
+    cache hold the rank's heads; on the column path they are whole, and
+    prefill without the ring attends by padded heads
+    (``padded_head_attention``). Where ``wo``'s rows are cut the output is
+    the sum over ``model`` of the ranks' partials (``out_proj``).
     """
     B, S, _ = x.shape
     tp = rt.tensor(cfg) if rt is not None else WHOLE
     q, k, v = qkv_proj(p, cfg, x, positions,
-                       (tp.heads(cfg), tp.kv_heads(cfg)))
+                       (tp.heads(cfg), tp.kv_heads(cfg)),
+                       join=tp.join_qkv if tp.columns else None)
     mesh = rt.mesh if rt is not None else None
     if cache is None:
         if mesh is not None and rt.parallel.attn_seq_parallel:
             o = ring_attention(q, k, v, mesh)
+        elif tp.columns:
+            o = padded_head_attention(q, k, v, cfg, tp, prefill_attention)
         else:
             o = prefill_attention(q, k, v)
         new_cache = (k, v)
@@ -105,8 +118,43 @@ def attn_block(p, cfg, x, positions, *, rt=None, cache=None, lengths=None,
                                   block_s)
         o = o[:, None]
         new_cache = cache
-    out = o.reshape(B, S, -1) @ p["wo"]
-    return (tp.reduce(out) if tp.attn else out), new_cache
+    return out_proj(p, cfg, o.reshape(B, S, -1), tp), new_cache
+
+
+def padded_head_attention(q, k, v, cfg, tp, attend):
+    """Causal attention of whole q (B, S, H, hd) and k/v (B, S, KVH, hd),
+    split over ``model`` by heads padded to a multiple of its n ranks, as
+    the reference's prefill splits it (``padded_heads``, ``shard_heads``):
+    k and v repeated to H heads, and this rank's Hp / n heads
+    (``TensorParallel.padded_heads``) of q, k, v, zero past H, through
+    ``attend(q, k, v)`` (each (B, S, Hp / n, hd)). A rank whose heads are
+    all padding attends over zeros and joins the gather all the same. The
+    ranks' outputs are joined by heads and the padding sliced off: (B, S,
+    H, hd), whole on every rank (under autograd each rank's gradient is
+    its heads' part of the sum over ``model``, ``TensorParallel.join``)."""
+    H = cfg.n_heads
+    lo, hi = tp.padded_heads(cfg)
+
+    def mine(t):
+        t = repeat_kv(t, H)[:, :, lo:hi]
+        pad = hi - lo - t.shape[2]
+        return F.pad(t, (0, 0, 0, pad)) if pad else t
+
+    o = attend(mine(q), mine(k), mine(v))
+    return tp.join(o, 2)[:, :, :H]
+
+
+def out_proj(p, cfg, o, tp=WHOLE):
+    """Attention's output o (B, S, heads x hd) through ``wo``. Where
+    ``wo``'s rows are cut over ``model`` (``tp.attn_cut``) the ranks'
+    products are summed: a rank multiplies its heads' o (``tp.attn``), or
+    its q_dim / n columns of the whole o (the column path), by its rows."""
+    if not tp.attn_cut:
+        return o @ p["wo"]
+    if not tp.attn:
+        lo, hi = tp.part(cfg.q_dim)
+        o = o[..., lo:hi]
+    return tp.reduce(o @ p["wo"])
 
 
 def _decode_attention(q, k, v, k_cache, v_cache, lengths, page_table, full,
@@ -178,7 +226,7 @@ def _ffn(p, cfg, x, i: int, moe_fn, tp=WHOLE, data=None):
     aux = {}
     if cfg.is_moe_layer(i):
         h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        ids, wts, aux = route(p["moe"], cfg, h, data)
+        ids, wts, aux = route(p["moe"], cfg, h, data, tp)
         widths = {}
         if cfg.dense_residual and cfg.d_ff > 0:
             widths["dense_mlp"] = cfg.d_ff
@@ -215,27 +263,34 @@ def block_train(p, cfg, parallel, x, positions, i: int, data=None,
 
     ``tp``: this rank's split over ``model`` (``parallel.tensor``), as
     ``block_apply`` splits a layer when serving: a rank attends with its
-    heads, runs its MLP columns, Mamba2 heads and experts, and the
-    row-parallel products sum over ``model``; what enters the split passes
-    through ``TensorParallel.enter``, so every gradient is whole or the
-    rank's slice."""
+    heads, or on the column path with its padded heads of the joined q,
+    k, v (``padded_head_attention``, with or without the ring, which
+    training does not run), runs its MLP columns, Mamba2 heads and
+    experts, routes on its router columns, and the row-parallel products
+    sum over ``model``; what enters the split passes through
+    ``TensorParallel.enter``, so every gradient is whole or the rank's
+    slice."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if cfg.block_kind(i) == "attn":
         B, S, _ = h.shape
         pa, H = p["attn"], tp.heads(cfg)
-        if tp.attn:
+        if tp.attn_cut:
             h = tp.enter(h)
             if cfg.qk_norm:   # whole scales, read by this rank's heads
                 pa = dict(pa, q_norm=tp.enter(pa["q_norm"]),
                           k_norm=tp.enter(pa["k_norm"]))
-        q, k, v = qkv_proj(pa, cfg, h, positions, (H, tp.kv_heads(cfg)))
-        o = chunked_attention(
-            q, repeat_kv(k, H), repeat_kv(v, H),
-            causal=True, q_chunk=parallel.attn_q_chunk,
-            kv_chunk=parallel.attn_kv_chunk, impl=parallel.attn_impl)
-        out = o.reshape(B, S, H * cfg.head_dim) @ pa["wo"]
-        if tp.attn:
-            out = tp.reduce(out)
+        q, k, v = qkv_proj(pa, cfg, h, positions, (H, tp.kv_heads(cfg)),
+                           join=tp.join_qkv if tp.columns else None)
+
+        def attend(q, k, v):
+            return chunked_attention(
+                q, repeat_kv(k, q.shape[2]), repeat_kv(v, q.shape[2]),
+                causal=True, q_chunk=parallel.attn_q_chunk,
+                kv_chunk=parallel.attn_kv_chunk, impl=parallel.attn_impl)
+
+        o = (padded_head_attention(q, k, v, cfg, tp, attend) if tp.columns
+             else attend(q, k, v))
+        out = out_proj(pa, cfg, o.reshape(B, S, -1), tp)
     else:
         out, _ = mamba_apply(p["mamba"], cfg, h, train=True, tp=tp)
     return _ffn(p, cfg, x + out, i,

@@ -13,9 +13,11 @@ loops over per-layer views.
 
 Serving (``prefill``, ``decode``) runs under ``torch.no_grad`` through the
 kernels, on one rank or, with a ``Runtime`` whose mesh spans several, as
-one rank of that mesh (``models.blocks``): the rank's params, caches and
-compute then hold its share of the heads, KV heads, MLP units, vocab rows
-and Mamba2 heads (``Runtime.tensor``), and of the batch's rows where the
+one rank of that mesh (``models.blocks``): the rank's params hold its
+share of attention's columns, MLP units, vocab rows, Mamba2 heads,
+experts and router columns (``Runtime.tensor``), its caches its KV heads
+where attention splits by whole heads (else every KV head) and its
+Mamba2 heads, and all of it its share of the batch's rows where the
 batch divides over the batch axes (``Runtime.rows``). Training
 (``loss``) runs the blocks' plain training route under autograd, each
 pattern repeat under ``torch.utils.checkpoint`` unless ``remat ==
@@ -134,11 +136,14 @@ class Runtime:
     rank, where the passes are the single-card path, bit for bit).
 
     On a mesh whose ``model`` axis holds n ranks, each rank holds and
-    computes its share of the dense leaves (``tensor``: the rank's heads,
-    KV heads, Mamba2 heads and vocab rows, ``parallel.tensor``), and of the
-    experts (``models.moe``). That is what the reference's ``padded_heads``
-    and ``shard_heads`` ask of GSPMD; the port splits only whole heads, so
-    it pads none. Every rank computes under the "tp" rules.
+    computes its share of the dense leaves (``tensor``: the rank's columns
+    of attention, its Mamba2 heads and vocab rows, ``parallel.tensor``),
+    and of the experts and the router's columns (``models.moe``). Where
+    attention's columns are not whole heads the rank attends with, prefill
+    splits by heads padded to a multiple of n, as the reference's
+    ``padded_heads`` and ``shard_heads`` ask of GSPMD
+    (``models.blocks.padded_head_attention``). Every rank computes under
+    the "tp" rules.
 
     The batch's rows split over the batch axes (``pod``, ``data``) where
     the reference's specs shard them (``shard_activations``, the cache's
@@ -406,8 +411,9 @@ class LM(nn.Module):
 
         ``rt``: the runtime whose mesh this rank trains on; where its
         ``model`` axis holds n > 1 ranks, the params are this rank's
-        slices (``Runtime.tensor``: heads, MLP columns, vocab rows, Mamba2
-        heads and experts, as serving splits them) and the loss is
+        slices (``Runtime.tensor``: attention's columns, MLP columns, vocab
+        rows, Mamba2 heads, experts and router columns, as serving splits
+        them) and the loss is
         computed across the ``model`` ranks under autograd
         (``parallel.tensor``): each rank returns the same loss, and the
         gradients of its slices are theirs of that loss, the whole
@@ -478,7 +484,8 @@ class LM(nn.Module):
         """Full-sequence forward; returns (last_logits (B, [ncb,] Vp),
         caches {"pos{i}": ...} in the module's layouts with B rows and, for
         attention, S positions), on every rank of ``rt``'s mesh: its caches
-        hold the rank's KV and Mamba2 heads (``Runtime.tensor``).
+        hold the rank's KV heads where attention splits by whole heads
+        (else every KV head) and its Mamba2 heads (``Runtime.tensor``).
 
         ``rows``: ``rt.rows``'s pair for the batch when ``batch`` holds
         this rank's rows of it (B is then the rank's rows), or None when

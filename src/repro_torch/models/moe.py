@@ -7,8 +7,9 @@ products through the grouped-GEMM kernel (``kernels.ops.gmm``) and add
 the gated outputs back into their tokens in a fixed order. On one rank
 every expert is local. Under a mesh whose ``model`` axis divides the
 experts, each rank holds the E / n experts that ``resolve_spec`` gives it
-(``"experts": "model"``), takes its range of the same dispatch, and the
-ranks' partial outputs add up in one all-reduce over ``model``: the
+(``"experts": "model"``) and the same E / n columns of the router (whose
+logits ``route`` gathers whole), takes its range of the same dispatch,
+and the ranks' partial outputs add up in one all-reduce over ``model``: the
 reference's expert parallelism with tokens replicated over ``model`` and
 a ``psum`` combine. The rows are the rank's (``models.lm.Runtime.rows``):
 under that split C counts them, as the reference's ``shard_map`` over
@@ -51,12 +52,18 @@ from repro_torch.parallel.sharding import AXIS_MODEL, mesh_axis_size
 from repro_torch.parallel.tensor import WHOLE
 
 
-def route(p, cfg, x, data=None):
+def route(p, cfg, x, data=None, tp=WHOLE):
     """x: (B, S, d) -> ids (B, S, K) int64, weights (B, S, K) f32, aux.
 
     fp32 router, softmax, top-k and renormalisation. Ties go to the lower
     expert index, as ``jax.lax.top_k`` orders them: a stable descending
     sort keeps equal probabilities in index order.
+
+    ``tp`` (``parallel.tensor.TensorParallel``): where it cuts the experts
+    (``tp.experts``), ``p["router"]`` holds this rank's E / n columns, as
+    the reference stores the router along (``embed``, ``experts``): the
+    rank's fp32 logits (x entering the split) are gathered whole over
+    ``model``, and everything after runs whole, alike on every rank.
 
     ``data``: the process group of the ranks that hold the other rows of
     the batch (``models.lm.LM.loss``), or None when x is the whole batch.
@@ -66,7 +73,10 @@ def route(p, cfg, x, data=None):
     global ``T``, so the shares add up to the reference's losses over the
     global batch.
     """
-    logits = x.float() @ p["router"]
+    if tp.experts:
+        logits = tp.gather(tp.enter(x).float() @ p["router"], -1)
+    else:
+        logits = x.float() @ p["router"]
     probs = torch.softmax(logits, dim=-1)
     wts, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     wts, ids = wts[..., :cfg.top_k], ids[..., :cfg.top_k]
@@ -271,8 +281,9 @@ def moe_train(p, cfg, x, ids, wts, data=None, tp=WHOLE, partial=None):
     slots of the global table; the slots that other ranks fill stay
     empty here, so the ranks' outputs are the rows of the reference's.
 
-    ``tp`` (``parallel.tensor.TensorParallel``): where its ``model`` axis
-    of n ranks divides E, ``p`` holds this rank's E / n experts, x and the
+    ``tp`` (``parallel.tensor.TensorParallel``): where it cuts the experts
+    over its n ranks (``tp.experts``), ``p`` holds this rank's E / n
+    experts, x and the
     gates enter the split (``TensorParallel.enter``), and the result is
     the sum over ``model`` of the ranks' outputs, ``partial`` (this rank's
     row-parallel part of the dense residual or shared MLP) added before
@@ -283,7 +294,7 @@ def moe_train(p, cfg, x, ids, wts, data=None, tp=WHOLE, partial=None):
     its own.
     """
     E = cfg.n_experts
-    if tp.n == 1 or E % tp.n:
+    if not tp.experts:
         y = _moe_train_local(p, cfg, x, ids, wts, slots(ids, cfg, data),
                              0, E)
         return y if partial is None else y + tp.reduce(partial)

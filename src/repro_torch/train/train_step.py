@@ -37,8 +37,9 @@ update as one device, up to the order of the sums.
 Under a mesh whose ``model`` axis holds n > 1 ranks (``(model n)``,
 ``(data d, model n)`` or ``(pod, data, model)``, the ``tp`` strategy),
 each rank holds and trains its slices of the leaves that serving splits
-(``bridge.ModelSplit``: heads, MLP columns, vocab rows, Mamba2 heads,
-experts) and computes the loss with its ``model`` peers under autograd
+(``bridge.ModelSplit``: attention's columns, MLP columns, vocab rows,
+Mamba2 heads, experts and router columns) and computes the loss with its
+``model`` peers under autograd
 (``LM.loss(rt=)``); the rows are its batch index's, as above. A split
 leaf's gradient is the rank's slice, a whole leaf's is whole on every
 ``model`` rank, and each is summed over the batch axes of its own

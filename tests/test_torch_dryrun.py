@@ -269,41 +269,10 @@ def test_input_specs_take_a_ranks_rows():
 
 # ------------------------------------------- (e) param bytes a rank
 # Leaves the port keeps whole over ``model`` at (16, 16) where the
-# reference cuts them 16 ways (ROADMAP queue 3 item 2): attention when
-# n_kv_heads % 16 != 0 (the port splits whole heads; the reference pads
-# them), and the MoE router (every rank routes every token). Bytes a rank
-# stores in the port; the reference's are 1/16 of them.
-_ATTN = ("wq", "wk", "wv", "wo")
-KEPT_WHOLE = {
-    "arctic-480b": {"blocks/pos0/attn/wq": 224788480,
-                    "blocks/pos0/attn/wk": 32112640,
-                    "blocks/pos0/attn/wv": 32112640,
-                    "blocks/pos0/attn/wo": 224788480,
-                    "blocks/pos0/moe/router": 8028160},
-    "granite-3-8b": dict(zip((f"blocks/pos0/attn/{k}" for k in _ATTN), (
-        1342177280, 335544320, 335544320, 1342177280))),
-    "internvl2-76b": dict(zip((f"blocks/pos0/attn/{k}" for k in _ATTN), (
-        671088640, 83886080, 83886080, 671088640))),
-    "jamba-1.5-large-398b": {
-        **dict(zip((f"blocks/pos3/attn/{k}" for k in _ATTN), (
-            75497472, 9437184, 9437184, 75497472))),
-        **{f"blocks/pos{i}/moe/router": 294912 for i in (1, 3, 5, 7)}},
-    "kimi-k2-1t-a32b": {
-        **dict(zip((f"blocks/pos0/attn/{k}" for k in _ATTN), (
-            391774208, 48971776, 48971776, 391774208))),
-        "blocks/pos0/moe/router": 41975808},
-    "mamba2-1.3b": {},
-    "musicgen-large": {},
-    "nemotron-4-15b": dict(zip((f"blocks/pos0/attn/{k}" for k in _ATTN), (
-        2415919104, 402653184, 402653184, 2415919104))),
-    "qwen2-7b": {
-        **dict(zip((f"blocks/pos0/attn/{k}" for k in _ATTN), (
-            719323136, 102760448, 102760448, 719323136))),
-        "blocks/pos0/attn/bq": 200704, "blocks/pos0/attn/bk": 28672,
-        "blocks/pos0/attn/bv": 28672},
-    "qwen3-14b": dict(zip((f"blocks/pos0/attn/{k}" for k in _ATTN), (
-        2097152000, 419430400, 419430400, 2097152000))),
-}
+# reference cuts them 16 ways, with the bytes a rank stores in the port:
+# none. Attention is stored by columns and the MoE router by its expert
+# columns, as ``resolve_spec`` places them.
+KEPT_WHOLE = {arch: {} for arch in ARCHS}
 
 
 def _reference_leaf_bytes(arch, mesh, strategy):
@@ -335,9 +304,9 @@ def _reference_leaf_bytes(arch, mesh, strategy):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_bytes_a_rank_equal_reference(arch):
     """At (16, 16) under ``default_parallel`` of train_4k and of
-    decode_32k (prefill's ring keeps attention whole by design), every
-    leaf a rank stores equals the reference's, exactly, but the leaves of
-    ``KEPT_WHOLE``, which the port stores 16x larger."""
+    decode_32k, every leaf a rank stores equals the reference's, exactly,
+    but the leaves of ``KEPT_WHOLE`` (none), which the port would store
+    16x larger."""
     mesh = _shape_mesh("pod")
     cfg = tconfigs.get_config(arch)
     for shape in ("train_4k", "decode_32k"):

@@ -476,12 +476,14 @@ def test_resolve_spec_guards_and_batch_axes():
 def test_sharded_init_is_the_slices_of_the_whole_init(arch, n, monkeypatch):
     """Each rank's leaves are the slices of the single-rank draw, drawn
     whole or slice by slice, and ``params_from_jax`` keeps the same
-    slices: the experts, and the dense leaves that tensor parallelism
-    splits (heads where they divide, every MLP, the vocab, the Mamba2
-    heads); the norms, the router and the B/C projections stay whole."""
+    slices: the experts and the router's columns, and the dense leaves
+    that tensor parallelism splits (attention's columns, every MLP, the
+    vocab, the Mamba2 heads); the norms and the B/C projections stay
+    whole."""
     cfg = dataclasses.replace(tconfigs.get_smoke_config(arch),
                               dtype="float32")
-    experts = (["moe", "w_in"], ["moe", "w_gate"], ["moe", "w_out"])
+    experts = (["moe", "w_in"], ["moe", "w_gate"], ["moe", "w_out"],
+               ["moe", "router"])
     for limit in (bridge.DRAW_LIMIT_BYTES, 4096):
         monkeypatch.setattr(bridge, "DRAW_LIMIT_BYTES", limit)
         whole = dict(tree_leaves(bridge.init_params(
@@ -507,14 +509,18 @@ def test_sharded_init_is_the_slices_of_the_whole_init(arch, n, monkeypatch):
                     assert t.shape[cut[0]] == whole[path].shape[cut[0]] // n
                 assert torch.equal(t, want), path
                 assert torch.equal(carried[path], want), path
-            families = {"vocab", "mlp"} | ({"heads", "kv_heads"} if tp.attn
-                                            else set()) | (
+            families = {"vocab", "mlp"} | (
+                {"heads", "kv_heads"} if tp.attn_cut else set()) | (
                 {"ssm_inner"} if tp.ssm else set())
             split = {p for p in whole if p.split("/")[-2:] in experts
                      or families & set(bridge.leaf_axes(p))}
             assert cut_paths == split, sorted(cut_paths ^ split)
-            assert tp.vocab and (not tp.attn or any(
+            assert tp.vocab and (not tp.attn_cut or any(
                 p.endswith("/attn/wq") for p in cut_paths))
+            assert tp.attn_cut == (cfg.n_heads > 0 and any(
+                cfg.block_kind(j) == "attn"
+                for j in range(cfg.pattern_period)))
+            assert tp.experts == cfg.moe
 
 
 def _nest(flat):

@@ -46,12 +46,13 @@ import jax  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.configs.base import ParallelConfig as JaxParallelConfig  # noqa: E402
+from repro.configs.base import smoke_reduce as jsmoke_reduce  # noqa: E402
 from repro.models.lm import LM as JaxLM  # noqa: E402
 from repro.serve.engine import Engine as JaxEngine  # noqa: E402
 from repro.serve.engine import Request as JaxRequest  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
-from repro_torch.configs.base import ParallelConfig  # noqa: E402
+from repro_torch.configs.base import ParallelConfig, smoke_reduce  # noqa: E402
 from repro_torch.models.lm import LM, Runtime, tree_leaves  # noqa: E402
 from repro_torch.parallel.check import bytes_held, join_heads  # noqa: E402
 from repro_torch.parallel.sharding import resolve_spec  # noqa: E402
@@ -64,6 +65,15 @@ MESHES = [m for ms in WORLDS.values() for m in ms]
 ARCHS = ("qwen3-14b", "qwen2-7b", "musicgen-large", "mamba2-1.3b",
          "jamba-1.5-large-398b", "arctic-480b")
 ENGINE_ARCH = "qwen3-14b"
+# padding that is real: qwen2-7b reduced with n_heads=6 (H 6, KVH 2, hd
+# 16, QKV biases), at (1, 4) only: Hp 8, each rank's wq columns span 1.5
+# heads and wk's half a head, and rank 3 attends with padding alone.
+# Each run's ParallelConfig overrides: the decode cache split by heads
+# (contiguous and paged), by sequence, and by sequence with ring prefill.
+H6 = "qwen2-h6"
+H6_RUNS = {"heads": {"decode_kv_shard": "heads"},
+           "seq": {"decode_kv_shard": "seq"},
+           "ring": {"decode_kv_shard": "seq", "attn_seq_parallel": True}}
 PROMPT, STEPS, LM_MAX_LEN = 8, 4, 16
 ENG_MAX_BATCH, ENG_MAX_LEN, PAGE = 3, 32, 8
 # what each smoke arch splits at each mesh's model axis: (attention by
@@ -77,9 +87,23 @@ SPLITS = {
         (4, arch == "musicgen-large"))}
 
 
+def _jax_smoke(arch):
+    if arch == H6:
+        return jsmoke_reduce(jconfigs.get_config("qwen2-7b"), n_heads=6)
+    return jconfigs.get_smoke_config(arch)
+
+
 def _fp32(arch):
-    return dataclasses.replace(jconfigs.get_smoke_config(arch),
-                               dtype="float32")
+    return dataclasses.replace(_jax_smoke(arch), dtype="float32")
+
+
+def _runs_of(mesh):
+    """[key, arch, ParallelConfig overrides] of each LM run at ``mesh``:
+    every arch under the default, and at (1, 4) the H6 runs."""
+    runs = [[arch, arch, {}] for arch in ARCHS]
+    if mesh == (1, 4):
+        runs += [[f"{H6}/{mode}", H6, over] for mode, over in H6_RUNS.items()]
+    return runs
 
 
 def _flat(tree, prefix=""):
@@ -130,7 +154,7 @@ import dataclasses, json
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import Mesh
 from repro import configs
-from repro.configs.base import ParallelConfig
+from repro.configs.base import ParallelConfig, smoke_reduce
 from repro.models.lm import LM
 
 work, which = sys.argv[1], int(sys.argv[2])
@@ -141,19 +165,21 @@ for data, model in spec["meshes"][which:which + 1]:
     mesh = Mesh(np.array(jax.devices()[:data * model]).reshape(data, model),
                 ("data", "model"))
     tag = f"{data}x{model}"
-    for arch in spec["archs"]:
-        cfg = dataclasses.replace(configs.get_smoke_config(arch),
-                                  dtype="float32")
+    for key, arch, over in spec["runs"][tag]:
+        cfg = dataclasses.replace(
+            smoke_reduce(configs.get_config("qwen2-7b"), n_heads=6)
+            if arch == spec["h6"] else configs.get_smoke_config(arch),
+            dtype="float32")
         lm = LM(cfg)
         params = jax.tree_util.tree_map_with_path(
             lambda p, _: jnp.asarray(inp[f"{arch}/params/" + "/".join(
                 str(k.key) for k in p)]), lm.init(None, abstract=True)[0])
-        rt = lm.runtime(ParallelConfig(), mesh)
+        rt = lm.runtime(ParallelConfig(**over), mesh)
         toks = jnp.asarray(inp[f"{arch}/prompt"])
         B = toks.shape[0]
         logits, pre, _ = jax.jit(lambda p, b: lm.prefill(p, rt, b))(
             params, {"tokens": toks})
-        out[f"{tag}/{arch}/prefill"] = logits
+        out[f"{tag}/{key}/prefill"] = logits
         caches = jax.tree.map(
             lambda d, s: jax.lax.dynamic_update_slice(d, s, (0,) * d.ndim),
             lm.init_cache(B, spec["lm_max_len"]), pre)
@@ -163,7 +189,7 @@ for data, model in spec["meshes"][which:which + 1]:
             lengths = jnp.full((B,), toks.shape[1] + i, jnp.int32)
             logits, caches = step(params, jnp.asarray(nxt[:, i:i + 1]),
                                   lengths, caches)
-            out[f"{tag}/{arch}/decode{i}"] = logits
+            out[f"{tag}/{key}/decode{i}"] = logits
 np.savez(f"{work}/jax_{which}.npz",
          **{k: np.asarray(v) for k, v in out.items()})
 print("OK")
@@ -177,7 +203,7 @@ import torch.distributed as dist
 torch.set_num_threads(1)
 from repro_torch import configs
 from repro_torch.bridge import params_from_jax
-from repro_torch.configs.base import ParallelConfig
+from repro_torch.configs.base import ParallelConfig, smoke_reduce
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.lm import LM, Runtime
 from repro_torch.parallel.collectives import gather_rows
@@ -208,17 +234,21 @@ def nested(prefix):
 for data, model in spec["worlds"][str(world)]:
     mesh = make_mesh(data, model, device="cpu")
     tag = f"{data}x{model}"
-    rt = Runtime(ParallelConfig(), mesh)
-    for arch in spec["archs"]:
-        cfg = dataclasses.replace(configs.get_smoke_config(arch),
-                                  dtype="float32")
+    for key, arch, over in spec["runs"][tag]:
+        rt = Runtime(ParallelConfig(**over), mesh)
+        cfg = dataclasses.replace(
+            smoke_reduce(configs.get_config("qwen2-7b"), n_heads=6)
+            if arch == spec["h6"] else configs.get_smoke_config(arch),
+            dtype="float32")
         lm = LM(cfg, params_from_jax(nested(arch + "/params/"), "cpu",
-                                     mesh=mesh, cfg=cfg), device="cpu")
+                                     mesh=mesh, cfg=cfg, parallel=rt.parallel),
+                device="cpu")
         tp = rt.tensor(cfg)
-        meta[f"{tag}/{arch}"] = [tp.attn, tp.ssm, tp.vocab,
-                                 tp.mlp(cfg.d_ff)]
+        meta[f"{tag}/{key}"] = [tp.attn, tp.ssm, tp.vocab,
+                                tp.mlp(cfg.d_ff), tp.columns, tp.experts,
+                                list(tp.padded_heads(cfg))]
         toks = t(inp[f"{arch}/prompt"])
-        out[f"{tag}/{arch}/embed"] = lm.embed({"tokens": toks}, rt)
+        out[f"{tag}/{key}/embed"] = lm.embed({"tokens": toks}, rt)
         # the serving passes take the rank's rows where the batch divides
         # over the batch axes; the harness gathers them
         rows = rt.rows(toks.shape[0])
@@ -226,10 +256,10 @@ for data, model in spec["worlds"][str(world)]:
         toks = toks[b]
         B, S = toks.shape[:2]
         logits, pre = lm.prefill({"tokens": toks}, rt=rt, rows=rows)
-        out[f"{tag}/{arch}/prefill"] = gather_rows(logits, group)
+        out[f"{tag}/{key}/prefill"] = gather_rows(logits, group)
         if tp.attn and cfg.block_kind(0) == "attn":
             # this rank's heads
-            out[f"{tag}/{arch}/k0"] = gather_rows(pre["pos0"][0][0], group)
+            out[f"{tag}/{key}/k0"] = gather_rows(pre["pos0"][0][0], group)
         window = rt.seq_window(cfg, spec["lm_max_len"])
         caches = lm.init_cache(B, spec["lm_max_len"] if window is None
                                else window[1] - window[0], rt)
@@ -240,11 +270,27 @@ for data, model in spec["worlds"][str(world)]:
             lengths = torch.full((B,), S + s, dtype=torch.int32)
             logits, caches = lm.decode(t(nxt[:, s:s + 1])[b], lengths,
                                        caches, rt=rt, rows=rows)
-            out[f"{tag}/{arch}/decode{s}"] = gather_rows(logits, group)
+            out[f"{tag}/{key}/decode{s}"] = gather_rows(logits, group)
+        if over.get("decode_kv_shard") == "heads":
+            # the same steps over a page pool, each row's pages out of order
+            ps = spec["page"]
+            per_row = spec["lm_max_len"] // ps
+            table = torch.arange(B * per_row, dtype=torch.int32).flip(
+                0).reshape(B, per_row)
+            pool = lm.init_paged_cache(B, B * per_row, ps, rt)
+            for r in range(B):
+                lm.splice(pool, pre, r, r, pages=table[r].tolist(),
+                          page_size=ps)
+            for s in range(spec["steps"]):
+                lengths = torch.full((B,), S + s, dtype=torch.int32)
+                logits, pool = lm.decode(t(nxt[:, s:s + 1])[b], lengths,
+                                         pool, table, rt=rt, rows=rows)
+                out[f"{tag}/{key}/paged{s}"] = gather_rows(logits, group)
     cfg = dataclasses.replace(configs.get_smoke_config(spec["engine_arch"]),
                               dtype="float32")
     lm = LM(cfg, params_from_jax(nested(spec["engine_arch"] + "/params/"),
                                  "cpu", mesh=mesh, cfg=cfg), device="cpu")
+    rt = Runtime(ParallelConfig(), mesh)
     pages = [None] if rt.decode_kv_shard(cfg) == "seq" else [None,
                                                              spec["page"]]
     for ps in pages:
@@ -265,7 +311,7 @@ def _inputs(jparams_by_arch):
     rng = np.random.default_rng(11)
     inp = {}
     for arch, jparams in jparams_by_arch.items():
-        cfg = jconfigs.get_smoke_config(arch)
+        cfg = _jax_smoke(arch)
         ncb = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
         inp[f"{arch}/prompt"] = rng.integers(
             1, cfg.vocab_size, (2, PROMPT) + ncb).astype(np.int32)
@@ -283,13 +329,14 @@ def runs(tmp_path_factory):
     rank, per-rank meta (splits, engine runs) by world and rank)."""
     work = tmp_path_factory.mktemp("tensor_parallel")
     jparams = {arch: jax.tree.map(np.asarray, JaxLM(_fp32(arch)).init(
-        jax.random.key(1))[0]) for arch in ARCHS}
+        jax.random.key(1))[0]) for arch in ARCHS + (H6,)}
     inp = _inputs(jparams)
     np.savez(work / "inputs.npz", **inp)
     reqs = _requests(JaxRequest, jconfigs.get_smoke_config(
         ENGINE_ARCH).vocab_size)
     spec = {"meshes": MESHES, "worlds": {str(k): v for k, v in WORLDS.items()},
-            "archs": list(ARCHS), "lm_max_len": LM_MAX_LEN, "steps": STEPS,
+            "runs": {_tag(m): _runs_of(m) for m in MESHES}, "h6": H6,
+            "lm_max_len": LM_MAX_LEN, "steps": STEPS,
             "engine_arch": ENGINE_ARCH, "eng_max_batch": ENG_MAX_BATCH,
             "eng_max_len": ENG_MAX_LEN, "page": PAGE,
             "requests": [{"rid": r.rid, "tokens": r.tokens.tolist(),
@@ -343,23 +390,20 @@ PLACEMENT_MESHES = [((1, 2), ("data", "model")), ((1, 4), ("data", "model")),
                     ((2, 16, 16), ("pod", "data", "model"))]
 ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 # Where ``resolve_spec`` places a leaf on ``model`` and the port keeps it
-# whole: (arch, model-axis size) -> {family: reason}. Attention stays
-# whole where the KV heads do not divide over the ranks or "auto" shards
-# the decode cache by sequence (KVH < n): GSPMD may pad and reshape a
-# split head, the port splits only whole heads. The router's experts dim
-# stays whole wherever the experts split.
+# whole: (arch, model-axis size) -> {family: reason}. None: attention and
+# the router are stored as the reference stores them, by columns, and
+# every published Mamba2 keeps its B/C groups whole.
+WHOLE = {}
+# Where attention's column-cut leaves are not whole heads a rank attends
+# with, so it takes the column path (padded heads at prefill, whole
+# attention at decode): (arch, model-axis size) -> reason.
 _SEQ = "KVH {} < 16: 'auto' shards the decode cache by sequence"
-_ROUTER = "every rank routes every token"
-WHOLE = {
-    **{(arch, 16): {"attention": _SEQ.format(8)} for arch in (
-        "granite-3-8b", "internvl2-76b", "nemotron-4-15b", "qwen3-14b")},
-    ("qwen2-7b", 16): {"attention": _SEQ.format(4) + " (and H 28 does "
-                       "not divide)"},
-    **{(arch, n): {"router": _ROUTER} for n in (2, 4) for arch in (
-        "arctic-480b", "jamba-1.5-large-398b", "kimi-k2-1t-a32b")},
-    **{(arch, 16): {"attention": _SEQ.format(8), "router": _ROUTER}
-       for arch in ("arctic-480b", "jamba-1.5-large-398b",
-                    "kimi-k2-1t-a32b")},
+COLUMN_PATH = {
+    **{(arch, 16): _SEQ.format(8) for arch in (
+        "arctic-480b", "granite-3-8b", "internvl2-76b",
+        "jamba-1.5-large-398b", "kimi-k2-1t-a32b", "nemotron-4-15b",
+        "qwen3-14b")},
+    ("qwen2-7b", 16): _SEQ.format(4) + " (and H 28 pads to 32)",
 }
 
 
@@ -377,7 +421,8 @@ def _shape_mesh(sizes, names, index=0):
 def test_per_rank_shapes_follow_resolve_spec_but_whole_heads(arch,
                                                              placement):
     """Published widths: each leaf a rank holds is ``resolve_spec``'s
-    slice on ``model``, or whole in exactly the cases of ``WHOLE``."""
+    slice on ``model`` (attention's and the router's columns included),
+    or whole in exactly the cases of ``WHOLE`` (none)."""
     sizes, names = placement
     cfg = tconfigs.get_config(arch)
     mesh = _shape_mesh(sizes, names, index=1)
@@ -403,27 +448,38 @@ def test_per_rank_shapes_follow_resolve_spec_but_whole_heads(arch,
 
 
 def test_whole_cases_are_the_guards_of_tensor_plan():
-    """Each ``WHOLE`` attention case is one that ``tensor_plan`` keeps
-    whole for its stated reason, and every other published arch splits
-    attention at n 2 and 4; arctic's experts and its dense residual split
-    where they divide."""
+    """``tensor_plan`` cuts attention's columns and the router's wherever
+    ``resolve_spec`` does, for every published arch at n 2, 4 and 16; a
+    rank attends with its own whole heads (``attn``) except in the
+    ``COLUMN_PATH`` cases, and under "seq" or the ring, where the leaves
+    stay column-cut; arctic's experts and its dense residual split where
+    they divide."""
     for arch in sorted(tconfigs.ARCHS):
         cfg = tconfigs.get_config(arch)
         for n in (2, 4, 16):
             tp = tensor_plan(cfg, _shape_mesh((1, n), ("data", "model")))
             if cfg.n_heads:
-                assert tp.attn == ("attention" not in WHOLE.get((arch, n),
-                                                                {})), (arch, n)
+                assert tp.attn_cut, (arch, n)
+                assert tp.columns == ((arch, n) in COLUMN_PATH), (arch, n)
+                assert tp.attn != tp.columns
+                assert tp.padded_heads(cfg) == (0, -(-cfg.n_heads // n))
+            else:
+                assert not (tp.attn_cut or tp.attn)
+            assert tp.experts == cfg.moe, (arch, n)
             assert tp.vocab and tp.n == n
             assert tp.ssm == cfg.ssm, (arch, n)
-    tp = tensor_plan(tconfigs.get_config("qwen3-14b"),
-                     _shape_mesh((1, 2), ("data", "model"), index=1),
-                     ParallelConfig(decode_kv_shard="seq"))
-    assert not tp.attn and tp.vocab and tp.mlp(17408)
-    tp = tensor_plan(tconfigs.get_config("qwen3-14b"),
-                     _shape_mesh((1, 2), ("data", "model"), index=1),
-                     ParallelConfig(attn_seq_parallel=True))
-    assert not tp.attn
+    qwen3 = tconfigs.get_config("qwen3-14b")
+    for over in ({"decode_kv_shard": "seq"}, {"attn_seq_parallel": True}):
+        tp = tensor_plan(qwen3, _shape_mesh((1, 2), ("data", "model"),
+                                            index=1), ParallelConfig(**over))
+        assert not tp.attn and tp.columns and tp.vocab and tp.mlp(17408)
+        assert tp.part(qwen3.q_dim) == (2560, 5120)
+        assert tp.padded_heads(qwen3) == (20, 40)
+    # qwen2-7b at 8 ranks: 28 heads pad to 32, the last rank's all padding
+    tp = tensor_plan(tconfigs.get_config("qwen2-7b"),
+                     _shape_mesh((1, 8), ("data", "model"), index=7))
+    assert tp.columns and tp.padded_heads(tconfigs.get_config(
+        "qwen2-7b")) == (28, 32)
 
 
 def test_qwen3_14b_halves_on_two_ranks():
@@ -453,14 +509,50 @@ def test_tp_prefill_and_decode_match_jax(runs, mesh, arch):
     world = _world(mesh)
     got = port[(world, 0)]
     attn, ssm = SPLITS[(arch, mesh[1])]
-    assert meta[(world, 0)][f"{_tag(mesh)}/{arch}"] == [
-        attn, ssm, True, tconfigs.get_smoke_config(arch).d_ff > 0]
+    cfg = tconfigs.get_smoke_config(arch)
+    assert meta[(world, 0)][f"{_tag(mesh)}/{arch}"][:6] == [
+        attn, ssm, True, cfg.d_ff > 0,
+        not attn and any(cfg.block_kind(j) == "attn"
+                         for j in range(cfg.pattern_period)), cfg.moe]
     for step in ["prefill"] + [f"decode{i}" for i in range(STEPS)]:
         key = f"{_tag(mesh)}/{arch}/{step}"
         np.testing.assert_allclose(got[key], want[key], rtol=1e-4, atol=1e-4,
                                    err_msg=key)
         for r in range(1, world):
             np.testing.assert_array_equal(port[(world, r)][key], got[key])
+
+
+@pytest.mark.parametrize("run", list(H6_RUNS))
+def test_padded_heads_prefill_and_decode_match_jax(runs, run):
+    """The H6 config (``smoke_reduce(qwen2-7b, n_heads=6)`` in each
+    package) at (1, 4), attention on the column path: prefill split by 8
+    padded heads, 2 a rank, rank 3's all padding (or the ring), and 4
+    decode steps over caches of every KV head (contiguous, and paged with
+    the rows' pages out of order, under "heads"; each rank's slice of the
+    positions under "seq"). Logits within 1e-4 of the reference's mesh,
+    equal on every rank."""
+    _, want, port, meta = runs
+    assert dataclasses.replace(tconfigs.get_smoke_config("qwen2-7b"),
+                               n_heads=6) == smoke_reduce(
+        tconfigs.get_config("qwen2-7b"), n_heads=6)
+    cfg = _fp32(H6)
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.qkv_bias) == (
+        6, 2, 16, True)
+    key = f"1x4/{H6}/{run}"
+    for r in range(4):
+        assert meta[(4, r)][key] == [False, False, True, True, True, False,
+                                     [2 * r, 2 * r + 2]], r
+    steps = ["prefill"] + [f"decode{i}" for i in range(STEPS)]
+    if run == "heads":        # the reference's paged decode equals its
+        steps += [f"paged{i}" for i in range(STEPS)]   # contiguous one
+    got = port[(4, 0)]
+    for step in steps:
+        ref = f"{key}/{step.replace('paged', 'decode')}"
+        np.testing.assert_allclose(got[f"{key}/{step}"], want[ref],
+                                   rtol=1e-4, atol=1e-4, err_msg=step)
+        for r in range(1, 4):
+            np.testing.assert_array_equal(port[(4, r)][f"{key}/{step}"],
+                                          got[f"{key}/{step}"])
 
 
 @pytest.fixture(scope="module")
@@ -551,8 +643,9 @@ def test_tp_engine_serves_the_single_rank_and_jax_tokens(
 
 # ------------------------------------------------------------------ guards
 def test_engine_refuses_weights_of_another_split():
-    """Weights split for the default runtime (attention by heads) under a
-    runtime whose attention stays whole ("seq") raise, naming the leaf;
+    """Weights split for one mesh (1, 2) under a runtime of another (1, 4)
+    raise, naming the leaf; the decode cache's mode does not change what a
+    rank stores ("heads" and "seq" cut attention's columns alike).
     ``params_from_jax`` with a mesh needs the config."""
     cfg = tconfigs.get_smoke_config("qwen3-14b")
     mesh = SimpleNamespace(**vars(_shape_mesh((1, 2), ("data", "model"))),
@@ -561,9 +654,15 @@ def test_engine_refuses_weights_of_another_split():
                                     "cpu", mesh=mesh), device="cpu")
     assert lm.params["blocks"]["pos0"]["attn"]["wq"].shape[-1] \
         == cfg.q_dim // 2
-    with pytest.raises(ValueError, match="blocks/pos0/attn/wq holds"):
-        Engine(lm, rt=Runtime(ParallelConfig(decode_kv_shard="seq"), mesh),
-               max_batch=2, max_len=16, device="cpu")
+    seq = ParallelConfig(decode_kv_shard="seq")
+    assert {p: t.shape for p, t in tree_leaves(bridge.meta_params(
+        cfg, mesh=mesh, parallel=seq))} == {
+        p: t.shape for p, t in tree_leaves(lm.params)}
+    four = SimpleNamespace(**vars(_shape_mesh((1, 4), ("data", "model"))),
+                           device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="param embed holds"):
+        Engine(lm, rt=Runtime(seq, four), max_batch=2, max_len=16,
+               device="cpu")
     with pytest.raises(ValueError, match="needs the model's cfg"):
         bridge.params_from_jax({"embed": np.zeros((1, 256, 64), np.float32)},
                                "cpu", mesh=mesh)

@@ -60,7 +60,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs.base import (  # noqa: E402
-    ParallelConfig, RunConfig, ShapeConfig)
+    ParallelConfig, RunConfig, ShapeConfig, smoke_reduce)
 from repro_torch.data.synthetic import synthetic_batches  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.world import spawn_world  # noqa: E402
@@ -71,6 +71,10 @@ ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("qwen3-14b", "granite-3-8b", "musicgen-large", "mamba2-1.3b",
          "arctic-480b", "jamba-1.5-large-398b")
 JAMBA, MAMBA, ARCTIC = "jamba-1.5-large-398b", "mamba2-1.3b", "arctic-480b"
+# padding that is real (``smoke_reduce(qwen2-7b, n_heads=6)`` in each
+# package: H 6, KVH 2, hd 16, QKV biases), at (model 4) only: attention
+# on the column path, its leaves cut mid-head, prefill by 8 padded heads
+H6 = "qwen2-h6"
 DEEP_SSM = {JAMBA}
 # name -> (data, model); the world of 2 holds m2, the world of 4 the rest
 MESHES = {"m2": (1, 2), "m4": (1, 4), "d2m2": (2, 2)}
@@ -100,6 +104,7 @@ def _cases():
                                            parallel={})
     cases["d2m2/micro"] = dict(arch="qwen3-14b", mesh="d2m2", over={},
                                parallel={"microbatches": 2})
+    cases[f"m4/{H6}"] = dict(arch=H6, mesh="m4", over={}, parallel={})
     return cases
 
 
@@ -116,9 +121,14 @@ JAX_GROUPS = {
 }
 
 
+def _smoke(arch):
+    if arch == H6:
+        return smoke_reduce(tconfigs.get_config("qwen2-7b"), n_heads=6)
+    return tconfigs.get_smoke_config(arch)
+
+
 def _model_cfg(arch, over):
-    return dataclasses.replace(tconfigs.get_smoke_config(arch),
-                               dtype="float32", **over)
+    return dataclasses.replace(_smoke(arch), dtype="float32", **over)
 
 
 def _run(case: dict) -> RunConfig:
@@ -141,7 +151,8 @@ import dataclasses
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import Mesh
 from repro import configs
-from repro.configs.base import ParallelConfig, RunConfig, ShapeConfig
+from repro.configs.base import (
+    ParallelConfig, RunConfig, ShapeConfig, smoke_reduce)
 from repro.data.synthetic import synthetic_batches
 from repro.models.lm import LM
 from repro.train.train_step import build_train_step
@@ -177,8 +188,10 @@ for name in spec["groups"][group]:
         data, model = spec["meshes"][c["mesh"]]
         mesh = Mesh(np.array(jax.devices()[:data * model]).reshape(
             data, model), ("data", "model"))
-    cfg = dataclasses.replace(configs.get_smoke_config(c["arch"]),
-                              dtype="float32", **c["over"])
+    cfg = dataclasses.replace(
+        smoke_reduce(configs.get_config("qwen2-7b"), n_heads=6)
+        if c["arch"] == spec["h6"] else configs.get_smoke_config(c["arch"]),
+        dtype="float32", **c["over"])
     rcfg = RunConfig(model=cfg, shape=ShapeConfig(**spec["shape"]),
                      parallel=ParallelConfig(**spec["chunks"], **c["parallel"]),
                      warmup_steps=2, moment_dtype="float32")
@@ -294,6 +307,17 @@ def _checkpoint_case(mesh, work, out):
     out["ckpt/restarts"] = pre.restarts
 
 
+def _checkpoint_h6(mesh, work, out):
+    """From the JAX checkpoint of H6's weights at step 0, the world at
+    (model 4) trains ``STEPS`` steps and checkpoints at the end: its
+    slices, cut mid-head, joined whole."""
+    from repro_torch.train.loop import train_loop
+    rcfg = _run(CASES[f"m4/{H6}"])
+    done = train_loop(rcfg, ckpt_dir=f"{work}/ckpt_h6", num_steps=STEPS,
+                      ckpt_every=STEPS, mesh=mesh)
+    out["ckpt_h6/losses"] = done.losses
+
+
 def _world(rank, mesh, work, world):
     """One rank of the world of ``world`` ranks (its mesh: model
     ``world``): every case of its meshes, in one order on every rank."""
@@ -307,6 +331,7 @@ def _world(rank, mesh, work, world):
             _step_case(name, case, meshes[case["mesh"]], inp, out)
     if world == 4:
         _checkpoint_case(meshes["d2m2"], work, out)
+        _checkpoint_h6(meshes["m4"], work, out)
     return out
 
 
@@ -316,15 +341,18 @@ def runs(tmp_path_factory):
     the work dir)."""
     import jax
     from repro import configs as jconfigs
+    from repro.configs.base import smoke_reduce as jsmoke_reduce
     from repro.models.lm import LM as JaxLM
     from repro.train import checkpoint as jckpt
     from repro.train.optimizer import AdamW as JAdamW
 
     work = tmp_path_factory.mktemp("tp")
     inputs = {}
-    for i, arch in enumerate(ARCHS):
-        cfg = dataclasses.replace(jconfigs.get_smoke_config(arch),
-                                  dtype="float32")
+    for i, arch in enumerate(ARCHS + (H6,)):
+        cfg = dataclasses.replace(
+            jsmoke_reduce(jconfigs.get_config("qwen2-7b"), n_heads=6)
+            if arch == H6 else jconfigs.get_smoke_config(arch),
+            dtype="float32")
         params, _ = JaxLM(cfg).init(jax.random.key(i))
         for path, v in jax.tree_util.tree_flatten_with_path(params)[0]:
             inputs[f"{arch}/params/" + "/".join(p.key for p in path)] = \
@@ -333,10 +361,13 @@ def runs(tmp_path_factory):
             # the JAX checkpoint the world starts from
             jckpt.save(str(work / "ckpt_jax"), 0, JAdamW(
                 moment_dtype="float32").init(params))
+        if arch == H6:
+            jckpt.save(str(work / "ckpt_h6"), 0, JAdamW(
+                moment_dtype="float32").init(params))
     np.savez(work / "inputs.npz", **inputs)
     (work / "spec.json").write_text(json.dumps({
         "cases": CASES, "groups": JAX_GROUPS, "meshes": MESHES,
-        "shape": SHAPE, "chunks": CHUNKS, "steps": STEPS}))
+        "shape": SHAPE, "chunks": CHUNKS, "steps": STEPS, "h6": H6}))
     for name in ("ckpt_ref", "ckpt_pre"):
         shutil.copytree(work / "ckpt_jax", work / name)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
@@ -429,7 +460,7 @@ def test_whole_leaves_have_equal_gradients_on_every_rank(runs, mesh):
     splits something."""
     _, port, _ = runs
     ranks = port[WORLD_OF[mesh]]
-    for arch in ARCHS:
+    for arch in ARCHS + ((H6,) if mesh == "m4" else ()):
         name = f"{mesh}/{arch}"
         r0 = ranks[0]
         assert r0[f"{name}/split"], name
@@ -529,6 +560,56 @@ def test_world_checkpoint_restores_in_jax_and_on_one_rank(runs):
     state, start, step_fn = _start(rcfg, d, "cpu")
     _, met = step_fn(state, synthetic_batches(rcfg, "cpu")(start))
     assert start == 4 and np.isfinite(float(met["loss"]))
+
+
+def test_padded_heads_checkpoint_restores_in_jax_and_on_one_rank(runs):
+    """The H6 world at (model 4), its attention leaves stored cut
+    mid-head, starts from JAX's step-0 checkpoint of the same weights: its
+    losses are the JAX mesh's (rtol 1e-6), and its step-2 checkpoint (the
+    slices joined, written by rank 0) restores in ``repro.train.
+    checkpoint`` and on one port rank with the same bits, its params and
+    moments within 1e-4 of the JAX mesh's after the same steps; that rank
+    steps on."""
+    import jax
+    from repro.configs.base import smoke_reduce as jsmoke_reduce
+    from repro import configs as jconfigs
+    from repro.models.lm import LM as JaxLM
+    from repro.train import checkpoint as jckpt
+    from repro.train.optimizer import AdamW as JAdamW
+    from repro_torch.train.loop import _like, _start
+    want, port, work = runs
+    name = f"m4/{H6}"
+    assert {f"blocks/pos0/attn/{k}" for k in ("wq", "wk", "wv", "wo", "bq",
+                                              "bk", "bv")} <= set(
+        port[4][0][f"{name}/split"])
+    for r in port[4]:
+        np.testing.assert_allclose(r["ckpt_h6/losses"], [
+            want[f"{name}/metrics/{s}/loss"] for s in range(STEPS)],
+            rtol=1e-6)
+    rcfg = _run(CASES[name])
+    d = str(work / "ckpt_h6")
+    assert ckpt.latest_step(d) == STEPS
+    state, step = ckpt.restore(d, _like(rcfg), device="cpu")
+    jcfg = dataclasses.replace(jsmoke_reduce(
+        jconfigs.get_config("qwen2-7b"), n_heads=6), dtype="float32")
+    jparams, _ = JaxLM(jcfg).init(None, abstract=True)
+    jstate, jstep = jckpt.restore(d, JAdamW(
+        moment_dtype="float32").init_abstract(jparams))
+    assert step == jstep == STEPS == state.step == int(jstate.step)
+    for part in ("params", "m", "v"):
+        mine = dict(tree_leaves(getattr(state, part)))
+        theirs = {"/".join(p.key for p in k): np.asarray(v) for k, v in
+                  jax.tree_util.tree_flatten_with_path(
+                      getattr(jstate, part))[0]}
+        assert mine.keys() == theirs.keys()
+        for p, t in mine.items():
+            assert np.array_equal(t.numpy(), theirs[p]), (part, p)
+            np.testing.assert_allclose(t.numpy(),
+                                       want[f"{name}/{part}/{p}"], rtol=0,
+                                       atol=1e-4, err_msg=f"{part}/{p}")
+    state, start, step_fn = _start(rcfg, d, "cpu")
+    _, met = step_fn(state, synthetic_batches(rcfg, "cpu")(start))
+    assert start == STEPS and np.isfinite(float(met["loss"]))
 
 
 # ------------------------------------------------------------ collectives
