@@ -175,7 +175,16 @@ dp. data-parallel training (``train.train_step`` under a mesh): a world
    capacity factor 0.5: assignments dropped (as many over the ranks as on
    one rank), loss within TRAIN_LOSS_RTOL and gradients within
    TRAIN_ATOL["dp jamba"] (16 layers, 14 of them Mamba2, amplify a changed
-   sum order past (e1)'s dense bound: 2.4x it on the H100). It prints each
+   sum order past (e1)'s dense bound: 2.4x it on the H100); (e4) (e2)'s
+   bf16 run through ``train_loop(mesh=, resize_at=)``: DP_STEPS steps
+   with checkpoints every 4, resized before step DP_ALONE to rank 0 alone
+   (None: no mesh) and before step DP_BACK back to the world, 2 resizes:
+   steps 0-2 equal (e2)'s uninterrupted world bit for bit, step DP_ALONE
+   (rank 0 alone, from the resize's checkpoint) within DP_NEXT_RTOL of
+   the world's, the later steps within DP_RESIZE_RTOL, and rank 1, while
+   out, holds no more bytes than before the loop. It prints each
+   resize's seconds (save, meeting, restore) beside a step's at each
+   extent, and each rank's bytes. It prints each
    rank's seconds a bf16 step beside one rank's, the shares of the step
    in the gradient reduction and in the ZeRO-1 all-gathers,
    the moment bytes a rank holds (measured and counted) against the
@@ -372,6 +381,13 @@ DP_CAPACITY_FACTOR = 0.5
 # differently; it read 1.2e-7 on the H100 at step 12 of a 12-step run
 # (one fp32 ulp), and a params leaf restored wrong moves it by units
 DP_NEXT_RTOL = 1e-3
+# (e4): rank 0 alone for steps DP_ALONE to DP_BACK - 1, the world again
+# from DP_BACK; the steps after DP_ALONE carry one rank's updates (another
+# sum order) through the bf16 params, and their losses are held to
+# (e2)'s uninterrupted world within DP_RESIZE_RTOL, 3x the largest of
+# them on the H100 (3.315e-05, step 7; steps 4-6 read 3.7e-06-7.7e-06)
+DP_ALONE, DP_BACK = 3, 6
+DP_RESIZE_RTOL = 1e-4
 
 
 # the tp-train phase: a world of TP_TRAIN_WORLD gloo ranks on the card at
@@ -3326,9 +3342,65 @@ def dp_resume(rcfg, work, mesh):
             "next": float(met["loss"]), "start": start}
 
 
+def dp_resize(rcfg, work, mesh):
+    """(e4) on one rank of the world: ``train_loop(mesh=)`` from a fresh
+    init, resized to rank 0 alone before step DP_ALONE and back to
+    ``mesh`` before DP_BACK, checkpoints every 4. Returns the report's
+    losses, resizes and restarts, the bytes this rank held before the
+    loop, and each save, meeting, entry (init or restore) and step it
+    took part in, in order, as (what, step, seconds, bytes allocated
+    after it; at a meeting outside the mesh ("out"), before it), each
+    device-synced on both sides."""
+    import functools
+    from repro_torch.train import loop
+    events = []
+
+    def clocked(what, fn, step_of=lambda a: None):
+        @functools.wraps(fn)
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            events.append((what, step_of(a), time.perf_counter() - t0,
+                           torch.cuda.memory_allocated()))
+            return out
+        return call
+
+    def start(*a, **kw):
+        state, step, step_fn = orig["start"](*a, **kw)
+        return state, step, clocked("step", step_fn)
+
+    def meet(self, leader, record):
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = orig["meet"](self, leader, record)
+        events.append(("meet" if record is not None else "out", out[1][1],
+                       time.perf_counter() - t0, held))
+        return out
+
+    orig = {"start": loop._start, "meet": loop._Meetings.meet,
+            "save": loop.ckpt.save}
+    loop._start = clocked("enter", start)
+    loop._Meetings.meet = meet
+    loop.ckpt.save = clocked("save", orig["save"], lambda a: a[1])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    try:
+        rep = loop.train_loop(
+            rcfg, ckpt_dir=os.path.join(work, "resize"), num_steps=DP_STEPS,
+            ckpt_every=4, mesh=mesh, resize_at={DP_ALONE: None,
+                                                DP_BACK: mesh})
+    finally:
+        loop._start, loop._Meetings.meet = orig["start"], orig["meet"]
+        loop.ckpt.save = orig["save"]
+    return {"losses": rep.losses, "resizes": rep.resizes,
+            "restarts": rep.restarts, "base": base, "events": events}
+
+
 def _dp_rank(rank, mesh, work):
     """One rank of the dp phase (``launch.world.spawn_world``'s target):
-    (e1) with its TF32 control, the timed steps, (e2) and (e3); every
+    (e1) with its TF32 control, the timed steps, (e2), (e4) and (e3); every
     launch counter set to 0 just before and read just after. Rank 0 also
     takes (e1)'s and (e3)'s one-rank steps, alone on the card before the
     world's, and holds the world against them here: only numbers go
@@ -3372,6 +3444,8 @@ def _dp_rank(rank, mesh, work):
     free_device_memory()
     out["e2"] = dp_resume(dp_e2_run(), work, mesh)
     free_device_memory()
+    out["e4"] = dp_resize(dp_e2_run(), work, mesh)
+    free_device_memory()
     e3 = dp_e3_run()
     drops = {}
     if rank == 0:
@@ -3387,6 +3461,71 @@ def _dp_rank(rank, mesh, work):
         out["e3"].update(against_one(one, world, "dp jamba"))
     out["launches"] = ops.launch_counts()
     return out
+
+
+def check_resize(ranks, ref, smi):
+    """(e4)'s gates against (e2)'s uninterrupted world losses ``ref``,
+    then its costs: each resize's save, meeting and restore seconds on
+    rank 0 beside its steps' at each extent, and each rank's bytes."""
+    e4, r1 = ranks[0]["e4"], ranks[1]["e4"]
+    alone = DP_BACK - DP_ALONE
+    losses = e4["losses"]
+    check(e4["resizes"] == r1["resizes"] == 2 and e4["restarts"] == 0
+          and len(losses) == DP_STEPS
+          and len(r1["losses"]) == DP_STEPS - alone,
+          f"dp e4: {e4['resizes']} and {r1['resizes']} resizes, "
+          f"{e4['restarts']} restarts, {len(losses)} and "
+          f"{len(r1['losses'])} losses")
+    check(losses[:DP_ALONE] == ref[:DP_ALONE]
+          and r1["losses"] == losses[:DP_ALONE] + losses[DP_BACK:],
+          f"dp e4: the world's losses before the resize {losses[:DP_ALONE]}"
+          f" vs (e2)'s {ref[:DP_ALONE]}, rank 1's {r1['losses']}")
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    check(errs[DP_ALONE] <= DP_NEXT_RTOL, f"dp e4: step {DP_ALONE} on rank "
+          f"0 alone {losses[DP_ALONE]!r} vs the world's {ref[DP_ALONE]!r}, "
+          f"rel err {errs[DP_ALONE]:.3e} > {DP_NEXT_RTOL}")
+    later = max(errs[DP_ALONE + 1:])
+    check(later <= DP_RESIZE_RTOL, f"dp e4: steps {DP_ALONE + 1}-"
+          f"{DP_STEPS - 1} rel err {later:.3e} > {DP_RESIZE_RTOL}: "
+          + ", ".join(f"{a!r} vs {b!r}" for a, b in zip(
+              losses[DP_ALONE + 1:], ref[DP_ALONE + 1:])))
+    out = [e for e in r1["events"] if e[0] == "out"]
+    check(len(out) == 1 and out[0][3] <= r1["base"], f"dp e4: rank 1 "
+          f"outside the mesh held {[e[3] for e in out]} B, {r1['base']} B "
+          "before the loop")
+    phase("dp", "e4", f"bf16 train_loop(mesh=, resize_at={{{DP_ALONE}: "
+          f"None, {DP_BACK}: mesh}}): {e4['resizes']} resizes, "
+          f"{len(losses)} losses on rank 0 and {len(r1['losses'])} on rank "
+          f"1; steps 0-{DP_ALONE - 1} equal (e2)'s bit for bit; step "
+          f"{DP_ALONE} on rank 0 alone rel err {errs[DP_ALONE]:.3e} (tol "
+          f"{DP_NEXT_RTOL}); steps {DP_ALONE + 1}-{DP_STEPS - 1} rel errs "
+          + ", ".join(f"{x:.3e}" for x in errs[DP_ALONE + 1:])
+          + f" (tol {DP_RESIZE_RTOL}); losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + f"; {smi}")
+    steps = [e[2] for e in e4["events"] if e[0] == "step"]
+    world = steps[:DP_ALONE] + steps[DP_BACK:]
+    held = [e[3] for e in e4["events"] if e[0] == "step"]
+    for at in (DP_ALONE, DP_BACK):
+        ev = e4["events"]
+        i = next(k for k, e in enumerate(ev) if e[:2] == ("save", at))
+        save, meet, enter = ev[i], ev[i + 1], ev[i + 2]
+        check(meet[0] == "meet" and enter[0] == "enter",
+              f"dp e4: events after the save at {at}: {ev[i:i + 3]}")
+        way = "world -> rank 0" if at == DP_ALONE else "rank 0 -> world"
+        phase("dp", "e4", f"resize at step {at} ({way}): save {save[2]:.3f}"
+              f" s, meeting {meet[2]:.3f} s, restore {enter[2]:.3f} s, "
+              f"{save[2] + meet[2] + enter[2]:.3f} s in all; a step "
+              f"{statistics.median(world):.4f} s in the world (of "
+              + ", ".join(f"{x:.4f}" for x in world) + "), "
+              f"{statistics.median(steps[DP_ALONE:DP_BACK]):.4f} s alone "
+              f"(of " + ", ".join(f"{x:.4f}" for x in
+                                    steps[DP_ALONE:DP_BACK]) + f"); {smi}")
+    saves = [f"{e[1]}: {e[2]:.3f}" for e in e4["events"] if e[0] == "save"]
+    phase("dp", "e4", f"rank 0's saves by step (s) {', '.join(saves)}; "
+          f"rank 1 waited {out[0][2]:.3f} s outside the mesh holding "
+          f"{out[0][3]} B allocated ({r1['base']} B before the loop), rank "
+          f"0 meanwhile {max(held[DP_ALONE:DP_BACK])} B (in the world "
+          f"{max(held[:DP_ALONE])} B); {smi}")
 
 
 def dp_e1_run():
@@ -3559,6 +3698,7 @@ def phase_dp(smi):
               f"{e2['next']:.6f} (rel err {next_err:.3e}, tol {DP_NEXT_RTOL});"
               f" losses " + ", ".join(f"{x:.4f}" for x in e2["ref"])
               + f"; {smi}")
+        check_resize(ranks, e2["ref"], smi)
         # (e3)
         e3 = r0["e3"]
         one_drops = r0["e3_one_drops"]

@@ -13,10 +13,15 @@ slice uses DTensor.
 
 The caller starts the process group (``torch.distributed.
 init_process_group``, gloo or NCCL) before building a mesh; building one
-creates subgroups, a collective call that every rank makes in the same
-order. The device comes from the caller, as everywhere in the port: the
-card by default (``cuda:LOCAL_RANK`` under torchrun, else the rank modulo
-the cards), ``"cpu"`` when asked, or ``"meta"`` for the dry run
+creates subgroups, a collective call that every rank of the world makes
+in the same order. A mesh may hold some of the world's ranks (``ranks=``,
+the first ones by default), as the reference's mesh over ``devs[:k]``
+does: a rank outside it still builds it, in the same order, and gets a
+``Mesh`` whose ``member`` is False, with no coordinates and no groups
+(``train.loop``'s resizes build such meshes). The device comes from the
+caller, as everywhere in the port: the card by default
+(``cuda:LOCAL_RANK`` under torchrun, else the rank modulo the cards),
+``"cpu"`` when asked, or ``"meta"`` for the dry run
 (``launch.dryrun``), whose ranks hold shapes only under a fake process
 group: the mesh's groups and coordinates are the real ones, and every
 tensor built on its device is a meta tensor, so the dry run needs no
@@ -49,37 +54,54 @@ def _device(device):
 
 
 class Mesh:
-    """The ranks of the default process group as a grid of ``sizes``
-    along ``axis_names``: rank r sits at ``np.unravel_index(r, sizes)``.
+    """``ranks`` of the default process group, increasing (the first
+    ``prod(sizes)`` by default), as a grid of ``sizes`` along
+    ``axis_names``: ``ranks[i]`` sits at ``np.unravel_index(i, sizes)``.
 
     ``axis_names`` and ``shape`` (name -> size) read like a JAX mesh's, so
     ``parallel.sharding`` takes either. ``coords`` is this rank's index on
     each axis; ``group(*axes)`` the process group of the ranks that share
     this rank's coordinates on every other axis, ranked by their index
-    over ``axes`` (row-major), which ``index(*axes)`` gives.
+    over ``axes`` (row-major), which ``index(*axes)`` gives;
+    ``group(*axis_names)`` holds the whole mesh. On a rank outside
+    ``ranks``, ``member`` is False and ``coords`` None.
     """
 
-    def __init__(self, sizes, axis_names, device=None):
+    def __init__(self, sizes, axis_names, device=None, ranks=None):
         self.device = _device(device)
         if not dist.is_initialized():
             raise RuntimeError("a mesh needs torch.distributed."
                                "init_process_group to have run on every rank")
         world, rank = dist.get_world_size(), dist.get_rank()
-        if math.prod(sizes) != world:
-            raise ValueError(f"mesh {tuple(sizes)} needs {math.prod(sizes)} "
-                             f"ranks, the world has {world}")
+        n = math.prod(sizes)
+        if n > world:
+            raise ValueError(f"mesh {tuple(sizes)} needs {n} ranks, the "
+                             f"world has {world}")
+        ranks = tuple(range(n)) if ranks is None else tuple(
+            int(r) for r in ranks)
+        # increasing: a process group ranks its members in that order, and
+        # the collectives need it to be the coordinates' order
+        if len(ranks) != n or list(ranks) != sorted(set(ranks)) or not all(
+                0 <= r < world for r in ranks):
+            raise ValueError(f"mesh {tuple(sizes)} needs {n} increasing ranks"
+                             f" of the world's {world}, given {ranks}")
+        self.ranks, self.member = ranks, rank in ranks
+        self.world_group = dist.group.WORLD
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, sizes))
         self.coords = dict(zip(self.axis_names, (
-            int(c) for c in np.unravel_index(rank, tuple(sizes)))))
-        grid = np.arange(world).reshape(tuple(sizes))
+            int(c) for c in np.unravel_index(ranks.index(rank), tuple(
+                sizes))))) if self.member else None
+        grid = np.array(ranks).reshape(tuple(sizes))
         self._groups = {}
-        for axes in [(a,) for a in self.axis_names] + [batch_axes(self)]:
+        for axes in ([(a,) for a in self.axis_names]
+                     + [batch_axes(self), self.axis_names]):
             if axes and axes not in self._groups:
                 self._groups[axes] = self._subgroup(grid, axes)
                 # the collectives gather in group-rank order: it must be
                 # the coordinates' order
-                if dist.get_rank(self._groups[axes]) != self.index(*axes):
+                if self.member and (dist.get_rank(self._groups[axes])
+                                    != self.index(*axes)):
                     raise RuntimeError(f"group over {axes} ranks this rank "
                                        f"{dist.get_rank(self._groups[axes])}"
                                        f", not {self.index(*axes)}")
@@ -94,6 +116,9 @@ class Mesh:
         return group
 
     def group(self, *axes):
+        if not self.member:
+            raise ValueError(f"rank {dist.get_rank()} is outside the mesh "
+                             f"over ranks {self.ranks}: it has no groups")
         return self._groups[tuple(axes)]
 
     def size(self, *axes) -> int:
@@ -115,9 +140,11 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     return Mesh((16, 16), (AXIS_DATA, AXIS_MODEL), device)
 
 
-def make_mesh(data: int, model: int, pod: int = 1, *, device=None) -> Mesh:
-    """Any (pod?, data, model) mesh over the world's ranks."""
+def make_mesh(data: int, model: int, pod: int = 1, *, device=None,
+              ranks=None) -> Mesh:
+    """Any (pod?, data, model) mesh over ``ranks`` of the world (the
+    first ``pod * data * model`` by default)."""
     if pod > 1:
         return Mesh((pod, data, model), (AXIS_POD, AXIS_DATA, AXIS_MODEL),
-                    device)
-    return Mesh((data, model), (AXIS_DATA, AXIS_MODEL), device)
+                    device, ranks)
+    return Mesh((data, model), (AXIS_DATA, AXIS_MODEL), device, ranks)

@@ -82,7 +82,9 @@ def spawn_world(n: int, fn, *args, devices=None, model: int = 1) -> list:
     None gives rank r the card r modulo the cards, and raises without
     one. The mesh is (``data`` n / model, ``model`` model), built by
     ``launch.mesh.make_mesh`` on each rank's device; a caller that needs
-    another layout builds it inside ``fn``."""
+    another layout builds it inside ``fn``, and so are the meshes of a
+    ``train_loop``'s resizes: by every rank, in one order, before the
+    loop starts (a mesh over some of the ranks too)."""
     if model < 1 or n % model:
         raise ValueError(f"spawn_world: {n} ranks do not divide into a "
                          f"model axis of {model}")

@@ -19,12 +19,13 @@ always saved whole. Under a mesh (``mesh=``) every rank calls ``save``,
 which joins one leaf at a time, a stacked leaf one layer at a time:
 the slices over the batch axes (``zero=``: the moments, and the params
 too under FSDP storage) first, then those over ``model`` (``split=``),
-the last join landing on the host. Rank 0 writes each leaf as it comes
-and makes the one atomic rename, and every rank waits on a barrier. On
-restore every rank reads the whole leaves and keeps its slices, cut on
-the host, so a directory written by a world restores on one device, in
-the JAX package or in a world of another shape or strategy, and the
-other way round.
+the last join landing on the host. The mesh's first rank writes each
+leaf as it comes and makes the one atomic rename, and the mesh's ranks
+wait on a barrier over the mesh, which need not hold the whole world
+(``train.loop``'s resizes). On restore every rank reads the whole
+leaves and keeps its slices, cut on the host, so a directory written by
+a world restores on one device, in the JAX package or in a world of
+another shape or strategy, and the other way round.
 """
 from __future__ import annotations
 
@@ -207,9 +208,10 @@ def save(path: str, step: int, state: TrainState, keep: int = 3, *,
     ``parallel.fsdp.BatchCuts`` its moments, and stored params, are cut
     by, and ``split``, the ``bridge.ModelSplit`` its params and moments
     are sliced by over ``model``, each None where it does not apply) and
-    rank 0 writes, a leaf at a time: a cut leaf is joined on the host
-    (``_joined``), a stacked one a layer at a time."""
-    writer = mesh is None or dist.get_rank() == 0
+    the mesh's first rank writes, a leaf at a time: a cut leaf is joined
+    on the host (``_joined``), a stacked one a layer at a time. Only the
+    mesh's ranks call it."""
+    writer = mesh is None or mesh.index(*mesh.axis_names) == 0
     leaves = state_leaves(state)
     final = os.path.join(path, f"step_{step}")
     tmp = final + ".tmp"
@@ -248,7 +250,7 @@ def save(path: str, step: int, state: TrainState, keep: int = 3, *,
         os.replace(tmp, final)
         _gc(path, keep)
     if mesh is not None:
-        dist.barrier()
+        dist.barrier(group=mesh.group(*mesh.axis_names))
     return final
 
 

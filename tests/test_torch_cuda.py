@@ -961,6 +961,76 @@ def test_data_parallel_step_equals_one_rank(card, backend):
             assert torch.equal(r["params"][p], ranks[0]["params"][p]), p
 
 
+# ------------------------------------------------- the loop's resize
+def _resize_rank(rank, mesh, work):
+    """qwen2-7b's smoke config in fp32 through ``train_loop(mesh=)`` on
+    the card, 6 steps: uninterrupted, then resized to rank 0 alone before
+    step 2 and back to ``mesh`` before step 4. Returns both runs' losses,
+    the resizes, and this rank's bytes allocated before the resized run
+    and at each meeting it waited at outside the active mesh."""
+    import dataclasses
+    import os
+
+    import torch.distributed as dist
+    from repro_torch.configs import (
+        ParallelConfig, RunConfig, ShapeConfig, get_smoke_config)
+    from repro_torch.train import loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("qwen2-7b"), dtype="float32")
+    rcfg = RunConfig(model=cfg, shape=ShapeConfig("dp", "train", 32, 4),
+                     parallel=ParallelConfig(attn_q_chunk=16,
+                                             attn_kv_chunk=16),
+                     warmup_steps=2, moment_dtype="float32")
+    ref = loop.train_loop(rcfg, ckpt_dir=os.path.join(work, "ref"),
+                          num_steps=6, ckpt_every=0, mesh=mesh)
+    torch.cuda.synchronize()
+    base, out = torch.cuda.memory_allocated(), []
+    meet = loop._Meetings.meet
+
+    def watched(self, leader, record):
+        if record is None:
+            out.append(torch.cuda.memory_allocated())
+        return meet(self, leader, record)
+
+    loop._Meetings.meet = watched
+    try:
+        rep = loop.train_loop(rcfg, ckpt_dir=os.path.join(work, "resize"),
+                              num_steps=6, ckpt_every=0, mesh=mesh,
+                              resize_at={2: None, 4: mesh})
+    finally:
+        loop._Meetings.meet = meet
+    return {"ref": ref.losses, "losses": rep.losses, "resizes": rep.resizes,
+            "base": base, "out": out, "backend": dist.get_backend()}
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_training_loop_resizes_to_one_rank_and_back(card, backend,
+                                                    tmp_path):
+    """``train_loop(resize_at={2: None, 4: mesh})`` on 2 ranks
+    (``launch.world.spawn_world``): gloo with both on the one card, NCCL
+    with a card a rank. Rank 0 runs all 6 steps, rank 1 the 4 in the
+    world, both count 2 resizes; steps 0-1 equal the uninterrupted
+    world's bit for bit, step 2 (rank 0 alone, from the resize's
+    checkpoint) within rtol 1e-5 of it and the later steps within 1e-4;
+    rank 1, while out, holds no more bytes than before the loop."""
+    from repro_torch.launch.world import spawn_world
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip("NCCL puts one rank on a card: needs two cards")
+    devices = ["cuda:0", "cuda:0"] if backend == "gloo" else \
+        ["cuda:0", "cuda:1"]
+    r0, r1 = spawn_world(2, _resize_rank, str(tmp_path), devices=devices)
+    assert r0["backend"] == r1["backend"] == backend
+    assert r0["resizes"] == r1["resizes"] == 2
+    assert len(r0["losses"]) == 6 and len(r1["losses"]) == 4
+    assert r0["losses"][:2] == r0["ref"][:2]
+    assert r0["losses"][2] == pytest.approx(r0["ref"][2], rel=1e-5)
+    assert r0["losses"][3:] == pytest.approx(r0["ref"][3:], rel=1e-4)
+    assert r1["losses"] == r0["losses"][:2] + r0["losses"][4:]
+    assert not r0["out"] and len(r1["out"]) == 1
+    assert r1["out"][0] <= r1["base"], (r1["out"], r1["base"])
+
+
 # ------------------------------------------- training under the model axis
 def _tp_step(mesh):
     """One step of qwen3-14b's smoke config in fp32 on the card, as a rank

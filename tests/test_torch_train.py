@@ -378,10 +378,9 @@ def test_preempt_resume_losses_bit_identical(tmp_path):
 
 def test_resize_checkpoints_and_reenters(tmp_path):
     """resize_at {step: None} checkpoints and re-enters on the same card,
-    bit-identical to an uninterrupted run; a mesh other than the loop's
-    own (here: none) raises, naming the controller's segments, which
-    start a world of another size. The loop under its own mesh re-enters
-    in ``tests/test_torch_train_dp.py``."""
+    bit-identical to an uninterrupted run; a mesh given to a loop with no
+    world raises before step 0. The loop resizes to other meshes of its
+    world in ``tests/test_torch_resize.py``."""
     rcfg = smoke_run("qwen2-7b", total_steps=6)
     ref = train_loop(rcfg, ckpt_dir=str(tmp_path / "ref"), num_steps=6,
                      ckpt_every=0, device="cpu")
@@ -390,9 +389,11 @@ def test_resize_checkpoints_and_reenters(tmp_path):
     assert rep.resizes == 1 and rep.losses == ref.losses
     other = SimpleNamespace(axis_names=("data", "model"),
                             shape={"data": 2, "model": 1})
-    with pytest.raises(ValueError, match="other than the loop's own"):
+    with pytest.raises(ValueError, match="step 3: a mesh given to a loop "
+                       "with no world"):
         train_loop(rcfg, ckpt_dir=str(tmp_path / "x"), num_steps=6,
                    resize_at={3: other}, device="cpu")
+    assert not (tmp_path / "x").exists()
 
 
 def test_loop_gives_up_after_max_restarts(tmp_path):
